@@ -9,17 +9,25 @@ then runs, in order:
 
   1. setup: the card's name and power limit, the torch version, the build time;
   2. kernels: each kernel against its plain PyTorch version on the card at the
-     main path's shapes (the mel kernel also at every n_fft), with the
-     kernel's time, the plain version's, one library call's as a yardstick,
-     and the least time the card could take for the same work;
+     main path's shapes (the mel kernel also at every n_fft, the quantized
+     products at every projection shape of every model size), with the
+     kernel's time, the plain version's, one library call's as a yardstick
+     where there is one, and the least time the card could take for the same
+     work;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
   4. serve: one ``Segmenter`` on the shipped base checkpoint (bfloat16 as
      shipped, default arguments: beam 4 and the checkpoint's
      post-processing) answers synthetic requests; every batch must launch the
      mel kernel once and the attention kernel once per encoder layer;
-  5. profile: one more request, timed stage by stage, then under
-     ``torch.profiler``: the device's busy share and its time by kernel.
+  5. quantized serve: the same checkpoint as ``inference_dtype="int8"``, as
+     ``"int4"``, and as ``"int8"`` with ``int8_kv=True`` answers two of those
+     requests each; besides the above, every decoder step must launch the
+     w8a16 (or w4a16) kernel 8 times per decoder layer, and every
+     single-token step the int8 cross-attention kernel once per layer;
+  6. profile: one more request, in bfloat16 and then in int8 with
+     ``int8_kv``, timed stage by stage, then under ``torch.profiler``: the
+     device's busy share and its time by kernel.
 
 The last three lines of its output are the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. A failed phase
@@ -45,6 +53,8 @@ SPEC_TIME_STEP = 0.0025
 BATCH = 4                      # Segmenter.segment()'s default batch_size
 SP, VALID, HD = 512, 500, 64   # encoder rows padded to 512, 500 of them real
 
+DECODE_ROWS = 16               # batch 4 x beam 4: the rows of a decode step
+
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s by operand type (bf16 on the tensor cores, float32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -57,6 +67,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # ``python tests/test_torch_segmenter.py --bf16-serve`` prints both packages'
 # tables for these requests.
 REQUESTS = [(100, 2.5, 1), (106, 10.0, 3), (101, 30.0, 1), (100, 30.0, 3)]
+QUANT_REQUESTS = REQUESTS[1:3]  # those each quantized mode answers
 
 
 def card_line() -> str:
@@ -79,6 +90,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls replayed from one CUDA
+    graph: the device's own time, with no host dispatch between launches."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
@@ -188,6 +210,151 @@ def check_attention(device) -> dict:
     return row
 
 
+def quant_shapes():
+    """(K, out) of every quantized projection of every model size (d_model
+    384 to 1280, d_ff = 4 d_model), and out = 640, whose tail columns a
+    tiled kernel can leave unwritten."""
+    shapes = []
+    for d in (384, 512, 768, 1024, 1280):
+        shapes += [(d, d), (d, 4 * d), (4 * d, d)]
+    return shapes + [(512, 640)]
+
+
+def check_qdot(device, bits: int) -> dict:
+    """K3 (bits 8) or K4 (bits 4) against its plain version at every
+    projection shape and at M = 1, 16 (a decode step), 48 (the prefill) and
+    512. Kernel and plain version round alike and differ in the order of a
+    float32 sum: held to 1e-3 of the largest output. Returns the main path's
+    row (base model, one decode step: M 16, K 512, out 512)."""
+    from whisperseg_torch.ops import quant
+    from whisperseg_torch.ops.dot import dot_f32
+
+    if bits == 8:
+        name, quantize = "qdot_w8a16", quant.quantize
+        kernel, plain = quant.qdot_w8a16_kernel, quant.qdot_w8a16_reference
+        replaces = "whisperseg_tpu/ops/quant.py:254"
+    else:
+        name, quantize = "qdot_w4a16", quant.quantize4
+        kernel, plain = quant.qdot_w4a16_kernel, quant.qdot_w4a16_reference
+        replaces = "whisperseg_tpu/ops/quant.py:312"
+    gen = torch.Generator(device="cpu").manual_seed(bits)
+    row, worst = None, 0.0
+    for k, out in quant_shapes():
+        w = torch.randn(k, out, generator=gen) * 0.05
+        w = w * torch.exp(torch.randn(out, generator=gen))  # uneven columns
+        qt = quantize(w).to(device)
+        storage = qt.values if bits == 8 else qt.packed
+        for m in (1, DECODE_ROWS, 48, 512):
+            x = torch.randn(m, k, generator=gen).to(device)
+            got, want = kernel(x, qt), plain(x, qt)
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            worst = max(worst, err / top)
+            main = (m, k, out) == (DECODE_ROWS, 512, 512)
+            ms = cuda_ms(lambda: kernel(x, qt), 50 if main else 10)
+            plain_ms = cuda_ms(lambda: plain(x, qt), 20 if main else 5)
+            nbytes = (storage.numel() + 4 * qt.scale.numel()
+                      + x.element_size() * x.numel() + 4 * m * out)
+            bound_ms, bound_by = bound(nbytes, 2 * m * k * out, torch.bfloat16)
+            print(f"  {name} M {m:3d} K {k:4d} out {out:4d}: max|err| {err:.2e} "
+                  f"({err / top:.1e} of max|out|, tol 1e-3)  kernel {ms:.4f} ms"
+                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms "
+                  f"({bound_by})", flush=True)
+            if not err <= 1e-3 * top:
+                raise AssertionError(f"{name} M {m} K {k} out {out}: max|err| "
+                                     f"{err} against max|out| {top}")
+            if main:
+                deq_ms = cuda_ms(lambda: dot_f32(
+                    x, quant.dequantize(qt, torch.bfloat16), torch.bfloat16), 20)
+                print(f"    note: replayed from a CUDA graph, without the "
+                      f"host's dispatch: {graph_ms(lambda: kernel(x, qt), 50):.4f}"
+                      f" ms; dequantize to bf16, then torch.mm: {deq_ms:.4f} ms "
+                      f"(several launches; no yardstick)", flush=True)
+                row = {"name": name, "route": "cuda",
+                       "source": "whisperseg_torch/csrc/qdot.cu",
+                       "replaces": replaces, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       # no one PyTorch call dequantizes and multiplies
+                       "library_ms": None}
+    print(f"  {name}: largest error over all shapes {worst:.1e} of max|out|",
+          flush=True)
+    return row
+
+
+CROSS_ATTENTION_CASES = [  # name, B, S, H, Hkv, hd
+    ("base", DECODE_ROWS, VALID, 8, 8, HD),
+    ("tiny", DECODE_ROWS, VALID, 6, 6, HD),
+    ("hd128", DECODE_ROWS, VALID, 4, 4, 128),
+    ("GQA 8/2", DECODE_ROWS, VALID, 8, 2, HD),
+    ("B 1", 1, VALID, 8, 8, HD),
+]
+
+
+def check_cross_attention(device) -> dict:
+    """K5 against its plain version (same roundings, another order of sums,
+    and weights that land on the other side of a bf16 tie: 1e-3 of the
+    largest output), against exact attention on the unquantized K/V (2 % of
+    the largest output, the JAX package's tolerance), and with a poisoned
+    tail beyond seq_len (1e-5). Returns the main path's row (base)."""
+    from whisperseg_torch.ops import cross_attention as ca
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    row = None
+    for name, b, s, h, hkv, hd in CROSS_ATTENTION_CASES:
+        q = torch.randn(b, h * hd, generator=gen).to(device)
+        k = (torch.randn(1, b, s, hkv, hd, generator=gen) * 0.5).to(device)
+        v = (torch.randn(1, b, s, hkv, hd, generator=gen) * 0.5).to(device)
+        kq, ks, vq, vs, seq = ca.quantize_kv_for_kernel(k, v)
+        args = (kq[0], ks[0], vq[0], vs[0], hkv, seq, h)
+        got = ca.cross_attention_int8(q, *args)
+        want = ca.cross_attention_int8_reference(q, *args)
+        qh = q.double().reshape(b, hkv, h // hkv, hd) * hd ** -0.5
+        probs = torch.softmax(
+            torch.einsum("bkgd,bskd->bkgs", qh, k[0].double()), dim=-1)
+        exact = torch.einsum("bkgs,bskd->bkgd", probs, v[0].double()).reshape(b, -1)
+        top = exact.abs().max().item()
+        err = (got - want).abs().max().item()
+        err_exact = (got.double() - exact).abs().max().item()
+
+        def poisoned(t, fill):
+            tail = torch.full((b, 4) + tuple(t.shape[2:]), fill, dtype=t.dtype,
+                              device=device)
+            return torch.cat([t, tail], dim=1).contiguous()
+        got_p = ca.cross_attention_int8(
+            q, poisoned(kq[0], 127), poisoned(ks[0], 10.0), poisoned(vq[0], 127),
+            poisoned(vs[0], 10.0), hkv, seq, h)
+        err_p = (got_p - got).abs().max().item()
+
+        ms = cuda_ms(lambda: ca.cross_attention_int8(q, *args), 50)
+        plain_ms = cuda_ms(lambda: ca.cross_attention_int8_reference(q, *args), 20)
+        nbytes = (kq[0].numel() + vq[0].numel() + 2 * (ks[0].numel() + vs[0].numel())
+                  + 2 * 4 * q.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * b * h * s * hd, torch.bfloat16)
+        print(f"  cross_attention_int8 {name:8s} [{b}, {s}, {h}/{hkv}, {hd}]: "
+              f"max|err| {err:.2e} ({err / top:.1e} of max|out|, tol 1e-3); "
+              f"against exact attention {err_exact / top:.2e} (tol 2e-2); "
+              f"poisoned tail {err_p:.1e} (tol 1e-5)  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})",
+              flush=True)
+        if not (err <= 1e-3 * top and err_exact <= 0.02 * top and err_p <= 1e-5):
+            raise AssertionError(f"cross_attention_int8 {name}: max|err| {err}, "
+                                 f"against exact {err_exact}, poisoned {err_p}, "
+                                 f"max|out| {top}")
+        if name == "base":
+            in_graph = graph_ms(lambda: ca.cross_attention_int8(q, *args), 50)
+            print(f"    note: replayed from a CUDA graph, without the host's "
+                  f"dispatch: {in_graph:.4f} ms", flush=True)
+            row = {"name": "cross_attention_int8", "route": "cuda",
+                   "source": "whisperseg_torch/csrc/cross_attention_int8.cu",
+                   "replaces": "whisperseg_tpu/ops/cross_attention.py:48",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   # scaled_dot_product_attention takes no int8 K/V
+                   "library_ms": None}
+    return row
+
+
 # ------------------------------------------------------------------- golden
 
 
@@ -258,46 +425,93 @@ def golden_phase(device) -> None:
 # -------------------------------------------------------------------- serve
 
 
-def serve_phase(device):
-    """Returns the Segmenter and the kernels' launch counts of the run."""
-    from whisperseg_torch.ops import attention, logmel
+class StepCount:
+    """Counts the decode loop's calls of ``decoder_step`` while it stands in
+    for it: all of them, and those of a single token."""
+
+    def __init__(self, decode_module):
+        self.module = decode_module
+        self.inner = decode_module.decoder_step
+        self.calls = self.single = 0
+
+    def __call__(self, params, cfg, xk, xv, input_ids, *args, **kwargs):
+        self.calls += 1
+        self.single += input_ids.shape[1] == 1
+        return self.inner(params, cfg, xk, xv, input_ids, *args, **kwargs)
+
+    def __enter__(self):
+        self.module.decoder_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decoder_step = self.inner
+
+
+def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
+                baseline=None):
+    """One Segmenter on the base checkpoint answers ``requests``; checks the
+    tables and every kernel's launch count. Returns the Segmenter, the
+    launch counts, and the tables' segment counts by request (``baseline``:
+    those of the bfloat16 phase, printed beside)."""
+    from whisperseg_torch import decode
+    from whisperseg_torch.ops import attention, cross_attention, logmel, quant
     from whisperseg_torch.segmenter import Segmenter
     from whisperseg_torch.synthetic import tone_bursts
 
     seg = Segmenter.from_pretrained(
         os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad"),
-        device=device)
-    seg.segment(tone_bursts(99, duration=2.5), SR)  # warm-up: cuBLAS, caches
+        inference_dtype=inference_dtype, device=device)
+    # warm-up: cuBLAS, caches
+    seg.segment(tone_bursts(99, duration=2.5), SR, int8_kv=int8_kv)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
-    logmel.launches = attention.launches = 0
-    batches, audio_s, busy_s = 0, 0.0, 0.0
-    for i, (seed, duration, trials) in enumerate(REQUESTS):
-        audio = tone_bursts(seed, duration=duration)
-        t0 = time.perf_counter()
-        table = seg.segment(audio, SR, num_trials=trials)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        windows = len(seg.slice_audio_windows(audio, SR, SPEC_TIME_STEP, trials)[1])
-        batches += -(-windows // BATCH)
-        audio_s += duration
-        busy_s += dt
-        print(f"  request {i}: {duration:4.1f} s audio, num_trials {trials}, "
-              f"{windows:2d} windows -> {len(table['onset']):3d} segments in "
-              f"{dt:.3f} s ({duration / dt:.1f} audio-s/s)", flush=True)
-        if not table["onset"]:
-            raise AssertionError(f"request {i}: empty segment table")
-    counts = {"melproject": logmel.launches, "attention_hm": attention.launches}
-    layers = seg.config.encoder_layers
+    logmel.launches = attention.launches = cross_attention.launches = 0
+    quant.launches_w8a16 = quant.launches_w4a16 = 0
+    batches, audio_s, busy_s, segments = 0, 0.0, 0.0, {}
+    with StepCount(decode) as steps:
+        for seed, duration, trials in requests:
+            audio = tone_bursts(seed, duration=duration)
+            t0 = time.perf_counter()
+            table = seg.segment(audio, SR, num_trials=trials, int8_kv=int8_kv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            windows = len(seg.slice_audio_windows(audio, SR, SPEC_TIME_STEP,
+                                                  trials)[1])
+            batches += -(-windows // BATCH)
+            audio_s += duration
+            busy_s += dt
+            segments[(seed, duration, trials)] = len(table["onset"])
+            beside = ("" if baseline is None else
+                      f" (bfloat16: {baseline[(seed, duration, trials)]})")
+            print(f"  request seed {seed}: {duration:4.1f} s audio, num_trials "
+                  f"{trials}, {windows:2d} windows -> {len(table['onset']):3d} "
+                  f"segments{beside} in {dt:.3f} s ({duration / dt:.1f} "
+                  f"audio-s/s)", flush=True)
+            if not table["onset"]:
+                raise AssertionError(f"request seed {seed}: empty segment table")
+    counts = {"melproject": logmel.launches, "attention_hm": attention.launches,
+              "qdot_w8a16": quant.launches_w8a16,
+              "qdot_w4a16": quant.launches_w4a16,
+              "cross_attention_int8": cross_attention.launches}
+    cfg = seg.config
+    # 8 quantized projections per decoder layer and step (q, k, v, o, xq, xo,
+    # fc1, fc2); the encoder's and the cross K/V's run at M > 512 rows
+    per_step = 8 * cfg.decoder_layers * steps.calls
+    want = {"melproject": batches,
+            "attention_hm": batches * cfg.encoder_layers,
+            "qdot_w8a16": per_step if inference_dtype == "int8" else 0,
+            "qdot_w4a16": per_step if inference_dtype == "int4" else 0,
+            "cross_attention_int8": (cfg.decoder_layers * steps.single
+                                     if int8_kv else 0)}
     print(f"  {audio_s:.1f} s of audio in {busy_s:.3f} s "
-          f"({audio_s / busy_s:.1f} audio-s/s); {batches} batches; launches "
-          f"{counts} (want {batches} and {batches * layers}); peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB",
-          flush=True)
-    if counts != {"melproject": batches, "attention_hm": batches * layers}:
-        raise AssertionError(f"launch counts {counts} for {batches} batches of "
-                             f"a {layers}-layer encoder")
-    return seg, counts
+          f"({audio_s / busy_s:.1f} audio-s/s); {batches} batches, "
+          f"{steps.calls} decoder steps ({steps.single} of one token); "
+          f"launches {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    return seg, counts, segments
 
 
 def timed(fn):
@@ -309,7 +523,7 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def stage_times(seg, audio) -> None:
+def stage_times(seg, audio, int8_kv: bool) -> None:
     """The request untraced, then its first batch of windows stage by stage
     (each stage ended by a synchronize): where the host clock goes."""
     from whisperseg_torch import tokenizer as tok
@@ -318,7 +532,7 @@ def stage_times(seg, audio) -> None:
     from whisperseg_torch.models.whisper import encoder_forward, frame_head_forward
 
     cfg = seg.config
-    _, wall = timed(lambda: seg.segment(audio, SR))
+    _, wall = timed(lambda: seg.segment(audio, SR, int8_kv=int8_kv))
     clips, _ = seg.slice_audio_windows(audio, SR, SPEC_TIME_STEP, 1)
     n_batches = -(-len(clips) // BATCH)
     x = torch.from_numpy(clips[:BATCH]).to(seg.device)
@@ -328,7 +542,8 @@ def stage_times(seg, audio) -> None:
     enc, t_enc = timed(lambda: encoder_forward(seg.params, cfg, feats))
     _, t_fh = timed(lambda: frame_head_forward(seg.params, cfg, enc))
     tokens, t_dec = timed(lambda: generate(seg.params, cfg, max_length=max_length,
-                                           num_beams=4, enc_out=enc))
+                                           num_beams=4, int8_kv=int8_kv,
+                                           enc_out=enc))
     longest = int((tokens != tok.PAD_ID).sum(dim=1).max()) - len(tok.PROMPT_IDS)
     print(f"  10 s request untraced: {wall:.3f} s for {len(clips)} windows "
           f"({n_batches} batch); its first batch by stage: frontend "
@@ -338,7 +553,7 @@ def stage_times(seg, audio) -> None:
           f"per token)", flush=True)
 
 
-def profile_phase(seg) -> None:
+def profile_phase(seg, int8_kv: bool = False) -> None:
     """One 10 s request timed by stage, then under torch.profiler: device
     busy share and device time by kernel."""
     from torch.autograd import DeviceType
@@ -347,10 +562,10 @@ def profile_phase(seg) -> None:
     from whisperseg_torch.synthetic import tone_bursts
 
     audio = tone_bursts(200, duration=10.0)
-    stage_times(seg, audio)
+    stage_times(seg, audio, int8_kv)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        seg.segment(audio, SR)
+        seg.segment(audio, SR, int8_kv=int8_kv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -369,6 +584,7 @@ def profile_phase(seg) -> None:
           f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
           f"{len(spans)} device ops", flush=True)
     groups = {"melproject": ("melproject",), "attention_hm": ("attention_hm",),
+              "qdot": ("qdot_w",), "cross_attention_int8": ("cross_attention",),
               "matmul": ("gemm", "gemv", "nvjet", "cutlass", "sm90"),
               "fft": ("fft",)}
     by_group = {}
@@ -406,18 +622,35 @@ def main() -> int:
           f"{os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
 
     print("[kernels] each against its plain version on the card", flush=True)
-    rows = [check_melproject(device), check_attention(device)]
+    rows = [check_melproject(device), check_attention(device),
+            check_qdot(device, 8), check_qdot(device, 4),
+            check_cross_attention(device)]
 
     print("[golden] tiny checkpoint, float32, beam 4, 3 trials", flush=True)
     golden_phase(device)
 
     print("[serve] base checkpoint, bfloat16, default arguments", flush=True)
-    seg, counts = serve_phase(device)
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    seg, launches, segments = serve_phase(device, REQUESTS)
 
-    print("[profile]", flush=True)
+    # each mode's kernels take their launch count from that mode's run
+    for dtype, int8_kv, names in (
+            ("int8", False, ("qdot_w8a16",)), ("int4", False, ("qdot_w4a16",)),
+            ("int8", True, ("cross_attention_int8",))):
+        print(f"[quantized serve] base checkpoint, {dtype}"
+              f"{' with int8_kv' if int8_kv else ''}, default arguments",
+              flush=True)
+        qseg, counts, _ = serve_phase(device, QUANT_REQUESTS, dtype, int8_kv,
+                                      baseline=segments)
+        launches.update({name: counts[name] for name in names})
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was never launched on its path")
+
+    print("[profile] bfloat16", flush=True)
     profile_phase(seg)
+    print("[profile] int8 with int8_kv", flush=True)
+    profile_phase(qseg, int8_kv=True)
 
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

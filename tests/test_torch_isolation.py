@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from whisperseg_torch.audio.frontend import Frontend
-from whisperseg_torch.ops import attention, logmel
+from whisperseg_torch.ops import attention, cross_attention, logmel, quant
 from whisperseg_torch.segmenter import Segmenter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,6 +49,9 @@ def test_no_jax_or_reference_package_import_anywhere():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "whisperseg_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    scanned = {os.path.relpath(f, ROOT) for f in files}
+    assert {"whisperseg_torch/ops/quant.py", "whisperseg_torch/ops/dot.py",
+            "whisperseg_torch/ops/cross_attention.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -72,3 +75,27 @@ def test_wrappers_count_no_launch_on_cpu_tensors():
     attention.fused_attention_head_major(64, q, torch.zeros(1, 2, 64, 64),
                                          torch.zeros(1, 2, 64, 64))
     assert logmel.launches == 0 and attention.launches == 0
+
+
+@pytest.mark.parametrize("inference_dtype", ["int8", "int4"])
+def test_quantized_cpu_segment_counts_no_launch(inference_dtype):
+    """On ``device="cpu"`` the quantized modes run the plain versions."""
+    quant.launches_w8a16 = quant.launches_w4a16 = cross_attention.launches = 0
+    seg = Segmenter.from_pretrained(TINY, inference_dtype=inference_dtype,
+                                    device="cpu")
+    layers = seg.params["decoder"]["layers"]
+    assert isinstance(layers["xq_w"], (quant.QuantTensor, quant.Quant4Tensor))
+    assert layers["xq_b"].dtype == torch.bfloat16
+    assert seg.params["decoder"]["tok_emb"].dtype == torch.bfloat16
+    audio = np.random.RandomState(0).randn(16000).astype(np.float32)
+    out = seg.segment(audio, 32000, num_beams=1, int8_kv=True)
+    assert set(out) == {"onset", "offset", "cluster"}
+    assert quant.launches_w8a16 == quant.launches_w4a16 == 0
+    assert cross_attention.launches == 0
+
+
+def test_quantized_entry_points_without_device_need_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for inference_dtype in ("int8", "int4"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Segmenter.from_pretrained(TINY, inference_dtype=inference_dtype)

@@ -1,7 +1,9 @@
 """``Segmenter.segment()`` of the port against the JAX package's, end to end on
 the shipped tiny checkpoint (float32 compute) with its default post-processing
 on: identical tables after the 3-decimal rounding. The shipped base
-checkpoint at bf16 likewise, against the JAX package's head-major path.
+checkpoint at bf16 likewise, against the JAX package's head-major path, and
+the quantized modes (int8, int4, int8 cross K/V) against the JAX package on
+its TPU kernel path.
 
 Also holds the golden file (whisperseg_torch/golden_tiny.json) to the JAX
 package's current output; the chip smoke run holds the port on the card to
@@ -21,6 +23,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from jax_kernel_path import jax_kernel_path  # noqa: E402
 from whisperseg_tpu.audio.frontend import Frontend as JaxFrontend  # noqa: E402
 from whisperseg_tpu.checkpoint import load_checkpoint as jax_load  # noqa: E402
 from whisperseg_tpu.ops import attention as jatt  # noqa: E402
@@ -122,6 +125,33 @@ def test_bf16_base_tables_identical_to_jax_head_major(base_bf16_segmenters,
         warnings.simplefilter("ignore")
         got = seg.segment(audio, 32000, num_trials=num_trials)
     assert len(want["onset"]) >= 3, want
+    assert got == want
+
+
+@pytest.mark.parametrize("inference_dtype,int8_kv,kernels", [
+    ("int8", False, {"attention.py", "quant.py"}),
+    ("int4", False, {"attention.py", "quant.py"}),
+    ("int8", True, {"attention.py", "quant.py", "cross_attention.py"}),
+])
+def test_quantized_tables_identical_to_jax_kernel_path(inference_dtype, int8_kv,
+                                                       kernels):
+    """The quantized modes end to end on the tiny checkpoint, each package
+    quantizing the float32 weights itself: default arguments (beam 4 and the
+    checkpoint's post-processing) over 3 trials. The JAX package runs its
+    w8a16 / w4a16 and int8 cross-attention Pallas kernels interpreted."""
+    params, cfg = jax_load(TINY)
+    jseg = JaxSegmenter(params, cfg, inference_dtype=inference_dtype)
+    seg = Segmenter.from_pretrained(TINY, inference_dtype=inference_dtype,
+                                    device="cpu")
+    audio = tone_bursts(0, duration=4.0)
+    with jax_kernel_path() as traced, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = jseg.segment(audio, 32000, num_trials=3, int8_kv=int8_kv)
+    assert set(traced) == kernels, traced
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = seg.segment(audio, 32000, num_trials=3, int8_kv=int8_kv)
+    assert len(want["onset"]) >= 5, want  # the comparison must bite
     assert got == want
 
 
@@ -239,16 +269,14 @@ def test_golden_file_is_the_jax_packages_output(segmenters):
 def test_out_of_slice_options_raise(segmenters):
     seg = segmenters[1]
     audio = np.zeros(8000, np.float32)
-    for kw in (dict(top_k=2), dict(top_p=0.5), dict(constrained=True),
-               dict(int8_kv=True)):
+    for kw in (dict(top_k=2), dict(top_p=0.5), dict(constrained=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             seg.segment(audio, 32000, **kw)
     with pytest.raises(NotImplementedError, match="speculative"):
         seg.set_draft_model(TINY)
     params, cfg = load_checkpoint(TINY)
-    for dtype in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="quantized"):
-            Segmenter(params, cfg, inference_dtype=dtype, device="cpu")
+    with pytest.raises(ValueError, match="unsupported inference_dtype"):
+        Segmenter(params, cfg, inference_dtype="int2", device="cpu")
     with pytest.raises(NotImplementedError, match="HF"):
         Segmenter.from_pretrained("whisperseg-base", device="cpu")
 

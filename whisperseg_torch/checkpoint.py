@@ -4,7 +4,8 @@ Reads the JAX package's checkpoint directories as they are. Parameters keep
 the JAX layouts: stacked per-layer weights ``[L, in, out]`` applied as
 ``x @ w`` and conv kernels ``[3, in, out]`` (the encoder runs each conv as one
 matmul over the three taps, models/whisper.py), so a tree moves between the
-two packages without relayout.
+two packages without relayout. Quantized leaves (ops/quant.py) cross as
+``{"values", "scale"}`` / ``{"packed", "scale"}`` pairs of numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .models.config import WhisperConfig
+from .ops.quant import Quant4Tensor, QuantTensor
 
 _SEP = "."
 
@@ -51,7 +53,8 @@ def _map(tree: dict, fn) -> dict:
 def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
     """Cast every floating leaf to ``dtype`` (LayerNorm gains, position tables
     and the frame head included, as the JAX Segmenter does), and move every
-    leaf to ``device`` when one is given."""
+    leaf to ``device`` when one is given. Quantized leaves keep their int8
+    storage and float32 scales, and move."""
     return _map(params, lambda t: t.to(
         device=device, dtype=dtype if t.is_floating_point() else None))
 
@@ -77,7 +80,9 @@ def params_from_numpy(tree: dict, cfg: WhisperConfig, device,
                       dtype: torch.dtype = torch.float32) -> dict:
     """JAX parameters as numpy arrays (a nested tree or a flat dict with
     dotted keys) -> the port's nested dict of tensors on ``device``, floating
-    leaves cast to ``dtype``. Layouts are kept (see the module note)."""
+    leaves cast to ``dtype``. Layouts are kept (see the module note). A
+    ``{"values", "scale"}`` or ``{"packed", "scale"}`` pair becomes a
+    ``QuantTensor`` or ``Quant4Tensor`` bit for bit."""
     if any(_SEP in k for k in tree):
         tree = _unflatten(tree)
 
@@ -89,15 +94,29 @@ def params_from_numpy(tree: dict, cfg: WhisperConfig, device,
         t = _from_storage(a, storage)
         return t.to(device=device, dtype=dtype if t.is_floating_point() else None)
 
-    params = _map(tree, to_tensor)
+    def build(node):
+        if not isinstance(node, dict):
+            return to_tensor(node)
+        for cls, storage in ((QuantTensor, "values"), (Quant4Tensor, "packed")):
+            if set(node) == {storage, "scale"}:
+                return cls(torch.from_numpy(np.array(node[storage], np.int8)),
+                           torch.from_numpy(np.array(node["scale"], np.float32))
+                           ).to(device)
+        return {k: build(v) for k, v in node.items()}
+
+    params = build(tree)
     _check_tree(params, cfg)
     return params
 
 
 def params_to_numpy(params: dict) -> dict:
     """Inverse of :func:`params_from_numpy`: float32 numpy leaves (bf16 widens
-    exactly)."""
+    exactly), quantized leaves as their pairs of arrays."""
     def to_numpy(t):
+        if isinstance(t, QuantTensor):
+            return {"values": to_numpy(t.values), "scale": to_numpy(t.scale)}
+        if isinstance(t, Quant4Tensor):
+            return {"packed": to_numpy(t.packed), "scale": to_numpy(t.scale)}
         t = t.detach().cpu()
         return (t.float() if t.is_floating_point() else t).numpy()
 

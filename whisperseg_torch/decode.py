@@ -24,8 +24,8 @@ from .models.whisper import (decoder_step, encoder_forward, init_cache,
 NEG_INF = -1e30
 
 
-def check_decode_options(top_k: int, top_p: float, constrained: bool,
-                         int8_kv: bool) -> None:
+def check_decode_options(top_k: int, top_p: float, constrained: bool
+                         ) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP.md item that will
     bring it, for a decoding option this port does not have yet."""
     if top_k > 1 or top_p < 1.0:
@@ -36,10 +36,6 @@ def check_decode_options(top_k: int, top_p: float, constrained: bool,
         raise NotImplementedError(
             "constrained decoding is not ported yet: ROADMAP.md Queue A item 8 "
             "(sampling and constrained decoding)")
-    if int8_kv:
-        raise NotImplementedError(
-            "int8 cross-attention K/V (int8_kv) is not ported yet: ROADMAP.md "
-            "Queue A item 6 (quantized inference)")
 
 
 @torch.no_grad()
@@ -48,38 +44,42 @@ def generate(params, cfg: WhisperConfig, features=None, max_length: int = 448,
              length_penalty: float = 1.0, constrained: bool = False,
              int8_kv: bool = False, enc_out=None) -> torch.Tensor:
     """Features [B, num_mel_bins, T] (or a ready ``enc_out`` [B, S, D]) ->
-    token ids [B, max_length] (prompt included, PAD-padded)."""
-    check_decode_options(top_k, top_p, constrained, int8_kv)
+    token ids [B, max_length] (prompt included, PAD-padded). ``int8_kv``
+    keeps the cross-attention K/V in int8 (ops/cross_attention.py)."""
+    check_decode_options(top_k, top_p, constrained)
     if enc_out is None:
         enc_out = encoder_forward(params, cfg, features)
     if num_beams <= 1:
-        return _generate_greedy(params, cfg, enc_out, max_length)
+        return _generate_greedy(params, cfg, enc_out, max_length, int8_kv)
     return _generate_beam(params, cfg, enc_out, max_length, num_beams,
-                          length_penalty)
+                          length_penalty, int8_kv)
 
 
 def _prompt(rows: int, device) -> torch.Tensor:
     return torch.tensor(tok.PROMPT_IDS, device=device).expand(rows, -1)
 
 
-def _generate_greedy(params, cfg, enc_out, max_length: int) -> torch.Tensor:
+def _generate_greedy(params, cfg, enc_out, max_length: int,
+                     int8_kv: bool = False) -> torch.Tensor:
     batch, device = enc_out.shape[0], enc_out.device
+    seq_len = enc_out.shape[1]
     prompt = _prompt(batch, device)
     pl = prompt.shape[1]
-    xk, xv = precompute_cross_kv(params, cfg, enc_out)
+    xk, xv = precompute_cross_kv(params, cfg, enc_out, int8_kv=int8_kv)
     ck, cv = init_cache(cfg, batch, max_length, device)
     tokens = torch.full((batch, max_length), tok.PAD_ID, dtype=torch.long,
                         device=device)
     tokens[:, :pl] = prompt
 
-    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv)
+    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv,
+                                  cross_seq_len=seq_len)
     cur = torch.argmax(logits[:, -1], dim=-1)
     finished = cur == tok.EOT_ID
     tokens[:, pl] = cur
     pos = pl
     while pos + 1 < max_length and not bool(finished.all()):
         logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
-                                      ck, cv)
+                                      ck, cv, cross_seq_len=seq_len)
         cur = torch.argmax(logits[:, -1], dim=-1)
         cur = torch.where(finished, tok.PAD_ID, cur)
         finished = finished | (cur == tok.EOT_ID)
@@ -123,15 +123,19 @@ def _bank_merge(bank_scores, bank_tokens, cand_scores, cand_tokens):
 
 
 def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
-                   length_penalty: float) -> torch.Tensor:
+                   length_penalty: float, int8_kv: bool = False) -> torch.Tensor:
     batch, device = enc_out.shape[0], enc_out.device
+    seq_len = enc_out.shape[1]
     k = num_beams
     vocab = cfg.vocab_size
     lp_pow = float(length_penalty)
     f32 = torch.float32
 
-    # encoder state expanded to B*K rows, beam-major within each batch item
-    xk, xv = precompute_cross_kv(params, cfg, enc_out.repeat_interleave(k, dim=0))
+    # encoder state expanded to B*K rows, beam-major within each batch item;
+    # beams reorder the self-attention cache only, never the cross K/V
+    xk, xv = precompute_cross_kv(params, cfg,
+                                 enc_out.repeat_interleave(k, dim=0),
+                                 int8_kv=int8_kv)
     ck, cv = init_cache(cfg, batch * k, max_length, device)
     prompt = _prompt(batch * k, device)
     pl = prompt.shape[1]
@@ -139,7 +143,8 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
                         device=device)
     tokens[:, :pl] = prompt
 
-    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv)
+    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv,
+                                  cross_seq_len=seq_len)
     logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
     logp0 = logp.reshape(batch, k, -1)[:, 0]  # beams identical at step 0
 
@@ -171,7 +176,7 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
 
     while pos + 1 < max_length and keep_going():
         logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
-                                      ck, cv)
+                                      ck, cv, cross_seq_len=seq_len)
         logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
         total = live_scores.reshape(-1, 1) + logp                  # [B*K, V]
         c_scores, c_parent, c_tok = _beam_candidates(

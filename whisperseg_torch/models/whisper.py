@@ -9,6 +9,14 @@ Numerics follow the JAX package: matmul inputs are cast to
 ``cfg.compute_dtype`` with float32 results (``_dot``), LayerNorm and softmax
 run in float32, the residual stream stays float32. The encoder always takes
 the head-major attention path, whose kernel is ops/attention.py.
+
+Quantized weights (ops/quant.py) go through ``_dot`` to ``qdot``, whose
+small-M products are the w8a16 / w4a16 kernels; the head-major encoder
+projections dequantize the whole weight first, as the JAX package does. With
+int8 cross K/V every single-token step runs the kernel of
+ops/cross_attention.py, MHA or GQA, whatever the width: the JAX call site's
+further gates (MHA only, Dkv >= 256) answer a TPU compiler fault and a TPU
+timing policy, and do not carry over.
 """
 
 from __future__ import annotations
@@ -19,6 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import fused_attention_head_major
+from ..ops.cross_attention import (cross_attention_int8, dequantize_kv,
+                                   quantize_kv_for_kernel)
+from ..ops.dot import dot_f32
+from ..ops.quant import Quant4Tensor, QuantTensor, dequantize, qdot
 from .config import WhisperConfig
 
 Params = Dict[str, object]
@@ -45,17 +57,11 @@ def _layer_norm(x, g, b, eps=1e-5):
 
 
 def _dot(x, w, cdt):
-    """x @ w with both operands cast to ``cdt`` and a float32 result (JAX's
-    ``preferred_element_type=float32``). A bf16 product would otherwise come
-    back rounded to bf16: on the card the bf16 GEMM writes float32 directly,
-    on the CPU the operands are widened (bf16 products are exact in float32)."""
-    x, w = x.to(cdt), w.to(cdt)
-    if cdt == torch.float32:
-        return x @ w
-    if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
+    """x @ w with a float32 result: a quantized weight goes to ``qdot``
+    (bf16 numerics whatever ``cdt``), a plain one to ``dot_f32``."""
+    if isinstance(w, (QuantTensor, Quant4Tensor)):
+        return qdot(x, w)
+    return dot_f32(x, w, cdt)
 
 
 def _split_heads(x, num_heads):
@@ -95,8 +101,10 @@ def _attention(q, k, v, cdt, mask=None):
 
 
 def _project_heads(h, w, b, heads: int, cdt):
-    """h [B, S, D] @ w [D, heads*hd] (+ b) -> [B, heads, S, hd] in cdt."""
-    y = _dot(h, w, cdt)
+    """h [B, S, D] @ w [D, heads*hd] (+ b) -> [B, heads, S, hd] in cdt. Like
+    the other two head-major projections it dequantizes a quantized weight
+    whole, in cdt."""
+    y = dot_f32(h, dequantize(w, cdt), cdt)
     if b is not None:
         y = y + b
     bsz, s, _ = y.shape
@@ -105,7 +113,7 @@ def _project_heads(h, w, b, heads: int, cdt):
 
 def _project_heads_t(h, w, heads: int, cdt):
     """h [B, S, D] @ w [D, heads*hd] -> [B, heads, hd, S] (K pre-transposed)."""
-    y = _dot(h, w, cdt)
+    y = dot_f32(h, dequantize(w, cdt), cdt)
     bsz, s, _ = y.shape
     return y.reshape(bsz, s, heads, -1).permute(0, 2, 3, 1).to(cdt).contiguous()
 
@@ -114,7 +122,7 @@ def _oproj_heads(a4, w, b, cdt):
     """a4 [B, H, S, hd] @ w [H*hd, D] + b -> [B, S, D] float32."""
     bsz, heads, s, hd = a4.shape
     a = a4.permute(0, 2, 1, 3).reshape(bsz, s, heads * hd)
-    return _dot(a, w, cdt) + b
+    return dot_f32(a, dequantize(w, cdt), cdt) + b
 
 
 def _conv3(x, w, stride: int, cdt):
@@ -185,10 +193,11 @@ def frame_head_forward(params: Params, cfg: WhisperConfig,
 
 
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
-                        enc_out: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        enc_out: torch.Tensor, int8_kv: bool = False):
     """Cross-attention K/V of every decoder layer: ([Ld, B, S, Hkv, hd],
-    same) in the compute dtype."""
+    same) in the compute dtype. With ``int8_kv`` each becomes a pair (int8
+    values [Ld, B, S, Hkv*hd], bf16 scales [Ld, B, S, Hkv]), quantized from
+    the compute-dtype K/V (ops/cross_attention.py)."""
     layers = params["decoder"]["layers"]
     cdt = compute_dtype(cfg)
     ks, vs = [], []
@@ -197,7 +206,11 @@ def precompute_cross_kv(params: Params, cfg: WhisperConfig,
         ks.append(_split_heads(_dot(enc_out, lp["xk_w"], cdt), cfg.kv_heads).to(cdt))
         vs.append(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
                                cfg.kv_heads).to(cdt))
-    return torch.stack(ks), torch.stack(vs)
+    k, v = torch.stack(ks), torch.stack(vs)
+    if not int8_kv:
+        return k, v
+    kq, k_scale, vq, v_scale, _ = quantize_kv_for_kernel(k, v)
+    return (kq, k_scale), (vq, v_scale)
 
 
 def init_cache(cfg: WhisperConfig, batch: int, max_len: int, device
@@ -210,11 +223,16 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, device
 
 
 def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
-                 input_ids: torch.Tensor, pos0: int, cache_k, cache_v):
+                 input_ids: torch.Tensor, pos0: int, cache_k, cache_v,
+                 cross_seq_len: int = 0):
     """Run the decoder over a chunk of new tokens ``input_ids`` [B, Lc] at
     absolute positions ``pos0 .. pos0 + Lc - 1`` (prefill: the prompt; decode:
     one token). Query ``qi`` of the chunk sees cache positions
-    ``<= pos0 + qi``.
+    ``<= pos0 + qi``. ``cross_k`` / ``cross_v`` are tensors, or the int8
+    pairs of ``precompute_cross_kv(int8_kv=True)`` together with
+    ``cross_seq_len``, their number of valid encoder positions: a single
+    token then goes through the int8 cross-attention kernel, a longer chunk
+    (the prefill) dequantizes the pairs once.
 
     Returns (logits [B, Lc, vocab] float32, cache_k, cache_v). Unlike the
     JAX version the caches are updated in place (and returned for symmetry)."""
@@ -246,8 +264,21 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         x = x + _dot(a, lp["o_w"], cdt) + lp["o_b"]
 
         h = _layer_norm(x, lp["lnx_g"], lp["lnx_b"])
-        q = _split_heads(_dot(h, lp["xq_w"], cdt) + lp["xq_b"], heads)
-        a = _attention(q, cross_k[i], cross_v[i], cdt)
+        q2d = _dot(h, lp["xq_w"], cdt) + lp["xq_b"]
+        if isinstance(cross_k, tuple):
+            (kq, k_scale), (vq, v_scale) = cross_k, cross_v
+            if lc == 1:
+                a = cross_attention_int8(
+                    q2d[:, 0], kq[i], k_scale[i], vq[i], v_scale[i], kv_heads,
+                    cross_seq_len, num_q_heads=heads)[:, None]
+            else:
+                kd = dequantize_kv(kq[i], k_scale[i], kv_heads, cross_seq_len)
+                vd = dequantize_kv(vq[i], v_scale[i], kv_heads, cross_seq_len)
+                a = _attention(_split_heads(q2d, heads), kd.to(cdt),
+                               vd.to(cdt), cdt)
+        else:
+            a = _attention(_split_heads(q2d, heads), cross_k[i], cross_v[i],
+                           cdt)
         x = x + _dot(a, lp["xo_w"], cdt) + lp["xo_b"]
 
         h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])

@@ -12,9 +12,12 @@ package, on the card by default:
   5. the checkpoint's post-processing chains (energy, then frame head);
   6. 3-decimal rounding.
 
-Options that later work will bring (sampling, constrained decoding, the
-quantized modes, speculative decoding, HF-format checkpoints) raise
-``NotImplementedError`` naming their ROADMAP item.
+``inference_dtype="int8"`` / ``"int4"`` quantize the projection weights in
+process (ops/quant.py) and ``segment(..., int8_kv=True)`` keeps the
+cross-attention K/V in int8 (ops/cross_attention.py). Options that later
+work will bring (sampling, constrained decoding, speculative decoding,
+HF-format checkpoints) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -36,10 +39,12 @@ from .constants import fft_time_delta
 from .decode import check_decode_options, generate
 from .models.config import WhisperConfig
 from .models.whisper import encoder_forward, frame_head_forward
+from .ops.quant import quantize_params
 from .refine import apply_frame_postprocess, apply_postprocess
 from .runtime import resolve_device
 
 _INFERENCE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_QUANT_BITS = {"int8": 8, "int4": 4}
 
 
 def _blur_correct_and_dedup(final: Dict[str, list],
@@ -105,19 +110,23 @@ def _tracks_from_window_frames(probs: np.ndarray, cluster: np.ndarray,
 class Segmenter:
     """Segmentation front door over a (params, config) pair. Every parameter
     is cast to ``inference_dtype`` (bfloat16 by default) and moved to
-    ``device`` (the card by default)."""
+    ``device`` (the card by default). ``"int8"`` stores the projection
+    weights as per-channel int8 (the counterpart of CTranslate2's
+    ``int8_float16``), ``"int4"`` as group-wise packed int4, both quantized
+    from the parameters as given (float32 from a checkpoint) with the rest in
+    bfloat16."""
 
     def __init__(self, params, config: WhisperConfig,
                  inference_dtype: str = "bfloat16", device=None):
-        if inference_dtype in ("int8", "int4"):
-            raise NotImplementedError(
-                f"inference_dtype={inference_dtype!r} is not ported yet: "
-                f"ROADMAP.md Queue A item 6 (quantized inference)")
-        if inference_dtype not in _INFERENCE_DTYPES:
+        if inference_dtype in _QUANT_BITS:
+            params = quantize_params(params, bits=_QUANT_BITS[inference_dtype])
+            dtype = torch.bfloat16
+        elif inference_dtype in _INFERENCE_DTYPES:
+            dtype = _INFERENCE_DTYPES[inference_dtype]
+        else:
             raise ValueError(f"unsupported inference_dtype {inference_dtype!r}")
         self.device = resolve_device(device)
-        self.params = cast_params(params, _INFERENCE_DTYPES[inference_dtype],
-                                  self.device)
+        self.params = cast_params(params, dtype, self.device)
         self.config = config
         self.total_spec_columns = config.total_spec_columns
         self.cluster_codebook: Dict[str, int] = dict(config.cluster_codebook)
@@ -185,7 +194,8 @@ class Segmenter:
                          batch_size: int, max_length: int, num_beams: int,
                          length_penalty: float,
                          status_monitor: Optional[dict] = None,
-                         collect_frames: bool = False):
+                         collect_frames: bool = False,
+                         int8_kv: bool = False):
         """Frontend -> encoder -> decode over fixed-size batches (the last one
         zero-padded, so every batch has one shape and the padded rows step
         the decode loop exactly as in the JAX package).
@@ -209,7 +219,8 @@ class Segmenter:
             enc = encoder_forward(self.params, cfg, feats)
             tokens = generate(self.params, cfg, max_length=max_length,
                               num_beams=num_beams,
-                              length_penalty=length_penalty, enc_out=enc)
+                              length_penalty=length_penalty,
+                              int8_kv=int8_kv, enc_out=enc)
             if collect_frames:
                 logits = frame_head_forward(self.params, cfg, enc)
                 probs = torch.sigmoid(logits[..., :3])
@@ -327,7 +338,7 @@ class Segmenter:
         "cluster": [...]}. Defaults: explicit argument > the checkpoint's
         default_segmentation_config > literal. ``seed`` only matters to
         sampling, which is not ported yet."""
-        check_decode_options(top_k, top_p, constrained, int8_kv)
+        check_decode_options(top_k, top_p, constrained)
         dsc = self.default_segmentation_config
         if min_frequency is None:
             min_frequency = dsc.get("min_frequency", 0)
@@ -362,7 +373,8 @@ class Segmenter:
         frontend = Frontend(sr, spec_time_step, min_frequency)
         gen = self._generate_tokens(clips, frontend, batch_size, max_length,
                                     num_beams, length_penalty, status_monitor,
-                                    collect_frames=need_frames)
+                                    collect_frames=need_frames,
+                                    int8_kv=int8_kv)
         if need_frames:
             token_lists, all_probs, all_cl = gen
             n0 = sum(1 for m in meta if m[0] == 0)  # trial-0 window count
