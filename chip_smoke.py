@@ -13,7 +13,9 @@ then runs, in order:
      products at every projection shape of every model size), with the
      kernel's time, the plain version's, one library call's as a yardstick
      where there is one, and the least time the card could take for the same
-     work;
+     work; the encoder attention's two backward kernels (dK/dV, dQ) against
+     the plain backward at six shapes, bit-identical on a second run, with
+     a finite-difference spot check;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
   4. serve: one ``Segmenter`` on the shipped base checkpoint (bfloat16 as
@@ -27,7 +29,15 @@ then runs, in order:
      single-token step the int8 cross-attention kernel once per layer;
   6. profile: one more request, in bfloat16 and then in int8 with
      ``int8_kv``, timed stage by stage, then under ``torch.profiler``: the
-     device's busy share and its time by kernel.
+     device's busy share and its time by kernel;
+  7. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
+     base checkpoint at full width (bf16 compute, float32 master weights,
+     AdamW, the CLI's default frame head) for 30 steps on a synthetic tone
+     dataset, 3 of them profiled; every step must launch the attention
+     kernel and each backward kernel once per encoder layer, every batch the
+     mel kernel once, and the loss must fall; then 5 steps with dropout and
+     remat (the attention kernel twice per layer), and the trained
+     checkpoint answers one request.
 
 The last three lines of its output are the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. A failed phase
@@ -178,13 +188,24 @@ def check_attention(device) -> dict:
             x = torch.randn(*shape, generator=gen) * 0.5
             return x.to(device=device, dtype=dtype)
         q, kt, v = rand(BATCH, h, SP, hd), rand(BATCH, hkv, hd, SP), rand(BATCH, hkv, SP, hd)
-        got = attention.fused_attention_head_major(VALID, q, kt, v)[:, :, :VALID].float()
-        want = attention.attention_hm_reference(VALID, q, kt, v)[:, :, :VALID].float()
+        full = attention.fused_attention_head_major(VALID, q, kt, v)
+        got = full[:, :, :VALID].float()
+        want, want_lse = attention.attention_hm_reference(VALID, q, kt, v,
+                                                          with_lse=True)
+        want = want[:, :, :VALID].float()
         err = (got - want).abs().max().item()
+        # training's launch: the same output, bit for bit, and the row
+        # log-sum-exp (bf16: p is rounded against the running maximum, so
+        # the sum of rounded weights may differ by a few parts in 1e3)
+        o_lse, lse = attention.fused_attention_head_major(VALID, q, kt, v,
+                                                          with_lse=True)
+        lse_err = (lse - want_lse).abs().max().item()
         if dtype == torch.float32:
-            ok, tol = err <= 2e-5, "2e-5"
+            ok, tol = err <= 2e-5 and lse_err <= 1e-5, "2e-5; lse 1e-5"
         else:
-            ok, tol = err <= 0.02 * want.abs().max().item(), "2% of max|out|"
+            ok, tol = (err <= 0.02 * want.abs().max().item() and lse_err <= 1e-2,
+                       "2% of max|out|; lse 1e-2")
+        ok = ok and torch.equal(o_lse, full)
         k = kt.transpose(-1, -2)
         ms = cuda_ms(lambda: attention.fused_attention_head_major(VALID, q, kt, v), 50)
         plain_ms = cuda_ms(lambda: attention.attention_hm_reference(VALID, q, kt, v), 20)
@@ -195,12 +216,21 @@ def check_attention(device) -> dict:
         flops = 4 * BATCH * h * SP * VALID * hd
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         print(f"  attention {name:12s} [{BATCH}, {h}/{hkv}, {SP}, {hd}]: "
-              f"max|err| {err:.2e} (tol {tol})  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"max|err| {err:.2e}, lse {lse_err:.1e} (tol {tol})  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms"
+              f"  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
         if not ok:
-            raise AssertionError(f"attention {name}: max|err| {err}")
+            raise AssertionError(f"attention {name}: max|err| {err}, lse "
+                                 f"{lse_err}, output with lse identical: "
+                                 f"{torch.equal(o_lse, full)}")
         if name == "base bf16":
+            def launch(with_lse):
+                return lambda: attention.fused_attention_head_major(
+                    VALID, q, kt, v, with_lse=with_lse)
+            print(f"    note: training's launch, with the row log-sum-exp: "
+                  f"{cuda_ms(launch(True), 50):.4f} ms; replayed from a CUDA "
+                  f"graph: {graph_ms(launch(False), 50):.4f} ms without it, "
+                  f"{graph_ms(launch(True), 50):.4f} ms with it", flush=True)
             row = {"name": "attention_hm", "route": "cuda",
                    "source": "whisperseg_torch/csrc/attention.cu",
                    "replaces": "whisperseg_tpu/ops/attention.py:86",
@@ -208,6 +238,144 @@ def check_attention(device) -> dict:
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
     return row
+
+
+ATTENTION_BWD_CASES = [  # name, B, H, Hkv, hd, dtype; Sp 512, valid 500
+    ("base bf16", BATCH, 8, 8, HD, torch.bfloat16),
+    ("base f32", BATCH, 8, 8, HD, torch.float32),
+    ("tiny bf16", BATCH, 6, 6, HD, torch.bfloat16),
+    ("GQA 8/2 bf16", BATCH, 8, 2, HD, torch.bfloat16),
+    ("hd128 bf16", BATCH, 4, 4, 128, torch.bfloat16),
+    ("B 1 bf16", 1, 8, 8, HD, torch.bfloat16),
+]
+
+
+def finite_difference_check(device) -> float:
+    """Float32 spot check of the two backward kernels against central
+    differences of sum(o * dO) (float64 sums) at B 1, H 2, Sp 128, 100 valid
+    keys, for entries of q, K and V, one of them a masked key. Returns the
+    largest gap as a share of the largest gradient; raises above 1e-2."""
+    from whisperseg_torch.ops import attention as att
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    sp, valid, eps = 128, 100, 1e-2
+    q, kt, v = (torch.randn(*s, generator=gen).mul(0.5).to(device)
+                for s in ((1, 2, sp, HD), (1, 2, HD, sp), (1, 2, sp, HD)))
+    do = torch.randn(1, 2, sp, HD, generator=gen).to(device)
+    do[:, :, valid:] = 0
+
+    def loss(q_, kt_, v_):
+        o = att.fused_attention_head_major(valid, q_, kt_, v_)
+        return (o.double() * do.double()).sum().item()
+
+    o, lse = att.fused_attention_head_major(valid, q, kt, v, with_lse=True)
+    grads = att.attention_hm_backward(valid, q, kt, v, o, do, lse)
+    top = max(g.abs().max().item() for g in grads)
+    worst = 0.0
+    for which, idx in ((0, (0, 0, 5, 3)), (0, (0, 1, 99, 60)), (1, (0, 1, 7, 20)),
+                       (1, (0, 0, 3, 110)), (2, (0, 0, 30, 11)), (2, (0, 1, 0, 63))):
+        args = [q, kt, v]
+        plus, minus = [a.clone() for a in args], [a.clone() for a in args]
+        plus[which][idx] += eps
+        minus[which][idx] -= eps
+        fd = (loss(*plus) - loss(*minus)) / (2 * eps)
+        worst = max(worst, abs(fd - grads[which][idx].item()) / top)
+    print(f"  finite differences (f32, 6 entries, one a masked key): largest "
+          f"gap {worst:.2e} of max|grad| (tol 1e-2)", flush=True)
+    if not worst <= 1e-2:
+        raise AssertionError(f"finite-difference gap {worst} of max|grad|")
+    return worst
+
+
+def check_attention_backward(device) -> list:
+    """The dK/dV and dQ kernels against the plain backward on the same
+    inputs (float32: 1e-4 of the largest gradient; bf16: 1e-2), at the
+    encoder's shapes with the padded keys' K/V poisoned (their dK and dV must
+    be exactly 0) and dO zero on padded rows, as the encoder's slice leaves
+    it; two runs must agree bit for bit. Times each kernel, the plain
+    backward, and scaled_dot_product_attention's backward (autograd, boolean
+    key mask, forward excluded). Returns the main path's rows (base, bf16)."""
+    from whisperseg_torch.ops import attention as att
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    keep = (torch.arange(SP, device=device) < VALID)[None, None, None, :]
+    rows = []
+    for name, b, h, hkv, hd, dtype in ATTENTION_BWD_CASES:
+        def rand(*shape):
+            x = torch.randn(*shape, generator=gen) * 0.5
+            return x.to(device=device, dtype=dtype)
+        q, kt, v = rand(b, h, SP, hd), rand(b, hkv, hd, SP), rand(b, hkv, SP, hd)
+        kt[..., VALID:] = 3e4  # poisoned padded keys
+        v[:, :, VALID:] = -3e4
+        o, lse = att.fused_attention_head_major(VALID, q, kt, v, with_lse=True)
+        do = rand(b, h, SP, hd)
+        do[:, :, VALID:] = 0
+        delta = att._delta(o, do)
+        dkt, dv = att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta)
+        dq = att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta)
+        again = (*att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta),
+                 att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta))
+        want = att._backward_plain(VALID, q, kt, v, do, lse, delta)
+        abs_errs = [(got.float() - ref.float()).abs().max().item()
+                    for got, ref in zip((dq, dkt, dv), want)]
+        errs = [e / ref.float().abs().max().item()
+                for e, ref in zip(abs_errs, want)]
+        padded = max(dkt[..., VALID:].abs().max().item(),
+                     dv[:, :, VALID:].abs().max().item())
+        same = all(torch.equal(x, y) for x, y in zip((dkt, dv, dq), again))
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        dkv_ms = cuda_ms(lambda: att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta), 30)
+        dq_ms = cuda_ms(lambda: att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta), 30)
+        whole_ms = cuda_ms(lambda: att.attention_hm_backward(VALID, q, kt, v, o, do, lse), 30)
+        plain_ms = cuda_ms(lambda: att._backward_plain(VALID, q, kt, v, do, lse, delta), 10)
+        qs, ks, vs = (t.detach().clone().requires_grad_()
+                      for t in (q, kt.transpose(-1, -2).contiguous(), v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep,
+                                             enable_gqa=h != hkv)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), 30)
+        item = q.element_size()
+        products = 2 * b * h * SP * VALID * hd
+        ins = item * (q.numel() + kt.numel() + v.numel() + do.numel()) + 8 * lse.numel()
+        dkv_bound = bound(ins + item * (kt.numel() + v.numel()), 4 * products, dtype)
+        dq_bound = bound(ins + item * q.numel(), 3 * products, dtype)
+        whole_bound = bound(item * (2 * q.numel() + 2 * kt.numel() + 2 * v.numel()
+                                    + 2 * q.numel()) + 4 * lse.numel(),
+                            5 * products, dtype)
+        print(f"  attention backward {name:12s} [{b}, {h}/{hkv}, {SP}, {hd}]: "
+              f"max|err| dq {errs[0]:.1e} dk {errs[1]:.1e} dv {errs[2]:.1e} of "
+              f"max|grad| (tol {tol:g}); padded keys' dK/dV max {padded:g} "
+              f"(must be 0); two runs {'identical' if same else 'DIFFER'}\n"
+              f"    dkv {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}, "
+              f"{dkv_bound[1]})  dq {dq_ms:.4f} ms (bound {dq_bound[0]:.4f}, "
+              f"{dq_bound[1]})  whole backward with D {whole_ms:.4f} ms "
+              f"(bound {whole_bound[0]:.4f}, {whole_bound[1]})  plain "
+              f"{plain_ms:.4f} ms  sdpa backward {library_ms:.4f} ms",
+              flush=True)
+        if not (max(errs) <= tol and padded == 0.0 and same):
+            raise AssertionError(f"attention backward {name}: errors {errs}, "
+                                 f"padded {padded}, identical {same}")
+        if name == "base bf16":
+            dkv_graph = graph_ms(lambda: att.attention_hm_bwd_dkv(
+                VALID, q, kt, v, do, lse, delta), 20)
+            dq_graph = graph_ms(lambda: att.attention_hm_bwd_dq(
+                VALID, q, kt, v, do, lse, delta), 20)
+            print(f"    note: replayed from a CUDA graph: dkv {dkv_graph:.4f} ms,"
+                  f" dq {dq_graph:.4f} ms; the sdpa time covers both kernels' "
+                  f"work", flush=True)
+            source = "whisperseg_torch/csrc/attention_bwd.cu"
+            flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+            rows = [
+                {"name": "attention_hm_bwd_dkv", "route": "cuda", "source": source,
+                 "replaces": f"{flash}:1121", "max_abs_err": max(abs_errs[1:]),
+                 "ms": dkv_ms, "plain_ms": plain_ms, "bound_ms": dkv_bound[0],
+                 "bound_by": dkv_bound[1], "library_ms": library_ms},
+                {"name": "attention_hm_bwd_dq", "route": "cuda", "source": source,
+                 "replaces": f"{flash}:1456", "max_abs_err": abs_errs[0],
+                 "ms": dq_ms, "plain_ms": plain_ms, "bound_ms": dq_bound[0],
+                 "bound_by": dq_bound[1], "library_ms": library_ms}]
+    finite_difference_check(device)
+    return rows
 
 
 def quant_shapes():
@@ -467,6 +635,7 @@ def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
     torch.cuda.reset_peak_memory_stats()
 
     logmel.launches = attention.launches = cross_attention.launches = 0
+    attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
     quant.launches_w8a16 = quant.launches_w4a16 = 0
     batches, audio_s, busy_s, segments = 0, 0.0, 0.0, {}
     with StepCount(decode) as steps:
@@ -491,6 +660,8 @@ def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
             if not table["onset"]:
                 raise AssertionError(f"request seed {seed}: empty segment table")
     counts = {"melproject": logmel.launches, "attention_hm": attention.launches,
+              "attention_hm_bwd": (attention.launches_bwd_dkv
+                                   + attention.launches_bwd_dq),
               "qdot_w8a16": quant.launches_w8a16,
               "qdot_w4a16": quant.launches_w4a16,
               "cross_attention_int8": cross_attention.launches}
@@ -500,6 +671,7 @@ def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
     per_step = 8 * cfg.decoder_layers * steps.calls
     want = {"melproject": batches,
             "attention_hm": batches * cfg.encoder_layers,
+            "attention_hm_bwd": 0,
             "qdot_w8a16": per_step if inference_dtype == "int8" else 0,
             "qdot_w4a16": per_step if inference_dtype == "int4" else 0,
             "cross_attention_int8": (cfg.decoder_layers * steps.single
@@ -556,7 +728,6 @@ def stage_times(seg, audio, int8_kv: bool) -> None:
 def profile_phase(seg, int8_kv: bool = False) -> None:
     """One 10 s request timed by stage, then under torch.profiler: device
     busy share and device time by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from whisperseg_torch.synthetic import tone_bursts
@@ -568,11 +739,30 @@ def profile_phase(seg, int8_kv: bool = False) -> None:
         seg.segment(audio, SR, int8_kv=int8_kv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    report_profile(prof, wall, "10 s request", SERVE_GROUPS)
+
+
+SERVE_GROUPS = {"melproject": ("melproject",), "attention_hm": ("attention_hm",),
+                "qdot": ("qdot_w",), "cross_attention_int8": ("cross_attention",),
+                "matmul": ("gemm", "gemv", "nvjet", "cutlass", "sm90"),
+                "fft": ("fft",)}
+
+
+def report_profile(prof, wall: float, what: str, groups: dict) -> dict:
+    """Prints the device's busy share of ``wall`` seconds and its time by
+    group of kernel names (first matching group, else "other") and by
+    kernel; returns the time by group in ms, and the busy time under
+    "busy"."""
+    from torch.autograd import DeviceType
+
+    # user annotations (e.g. "Optimizer.step#AdamW.step") are ranges laid
+    # over the device's timeline, not kernels: left out
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         print("  torch.profiler recorded no device time", flush=True)
-        return
+        return {}
     busy_us, reach = 0.0, -1.0
     by_name = {}
     for start, end, name in spans:
@@ -580,13 +770,9 @@ def profile_phase(seg, int8_kv: bool = False) -> None:
         reach = max(reach, end)
         tot, n = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + end - start, n + 1)
-    print(f"  10 s request, traced: wall {wall:.3f} s, device busy "
+    print(f"  {what}, traced: wall {wall:.3f} s, device busy "
           f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
           f"{len(spans)} device ops", flush=True)
-    groups = {"melproject": ("melproject",), "attention_hm": ("attention_hm",),
-              "qdot": ("qdot_w",), "cross_attention_int8": ("cross_attention",),
-              "matmul": ("gemm", "gemv", "nvjet", "cutlass", "sm90"),
-              "fft": ("fft",)}
     by_group = {}
     for name, (tot, n) in by_name.items():
         group = next((g for g, keys in groups.items()
@@ -598,6 +784,208 @@ def profile_phase(seg, int8_kv: bool = False) -> None:
         sorted(by_group.items(), key=lambda kv: -kv[1][0])), flush=True)
     for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {tot / 1e3:9.3f} ms {n:6d}x  {name[:90]}", flush=True)
+    return {"busy": busy_us / 1e3, **{g: t / 1e3 for g, (t, _) in by_group.items()}}
+
+
+# -------------------------------------------------------------------- train
+
+TRAIN_STEPS = 30        # steps of the main training run
+TRAIN_TIMED_FROM = 5    # steps before this one are warm-up, not timed
+TRAIN_PROFILED = (10, 13)  # steps [10, 13) run under torch.profiler
+TRAIN_FILES = 8         # 10 s recordings: 5 windows of 2.5 s each
+TRAIN_GROUPS = {"K2 attention_hm": ("attention_hm_kernel",),
+                "dkv": ("attention_bwd_dkv",), "dq": ("attention_bwd_dq",),
+                "K1 melproject": ("melproject",),
+                "cuBLAS": ("gemm", "gemv", "nvjet", "cutlass", "sm90"),
+                "optimizer": ("multi_tensor",),
+                "elementwise": ("elementwise", "vectorized", "reduce", "copy",
+                                "fill", "index", "cat", "softmax", "norm",
+                                "where", "gather", "scatter")}
+
+
+class StepProbe:
+    """Stands in for ``trainer.build_train_step`` while a run builds its
+    step: every step is synchronized and timed, its loss read, its launches
+    of the encoder-attention kernels counted, and steps ``profiled`` run
+    under torch.profiler. ``VocalSegDataset.collate`` calls are counted
+    too: each collated batch must launch the mel kernel once."""
+
+    def __init__(self, profiled=None):
+        from whisperseg_torch.data import VocalSegDataset
+        from whisperseg_torch.training import trainer
+
+        self.trainer, self.dataset_cls = trainer, VocalSegDataset
+        self.profiled = profiled
+        self.times, self.losses, self.launches = [], [], []
+        self.collates = 0
+        self.prof, self.prof_wall = None, 0.0
+
+    def __enter__(self):
+        from whisperseg_torch.ops import attention, logmel
+
+        self.build, self.collate = self.trainer.build_train_step, self.dataset_cls.collate
+        probe = self
+
+        def collate(dataset, items):
+            probe.collates += 1
+            return probe.collate(dataset, items)
+
+        def build(*args, **kwargs):
+            step = probe.build(*args, **kwargs)
+
+            def timed_step(params, batch, gen):
+                i = len(probe.times)
+                if probe.profiled and i == probe.profiled[0]:
+                    from torch.profiler import ProfilerActivity, profile
+                    probe.prof = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                    probe.prof.start()
+                before = (attention.launches, attention.launches_bwd_dkv,
+                          attention.launches_bwd_dq)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(params, batch, gen)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                after = (attention.launches, attention.launches_bwd_dkv,
+                         attention.launches_bwd_dq)
+                if probe.profiled and probe.profiled[0] <= i < probe.profiled[1]:
+                    probe.prof_wall += dt
+                    if i == probe.profiled[1] - 1:
+                        probe.prof.stop()
+                probe.times.append(dt)
+                probe.losses.append(float(loss))
+                probe.launches.append(tuple(a - b for a, b in zip(after, before)))
+                return loss
+            return timed_step
+
+        self.trainer.build_train_step = build
+        self.dataset_cls.collate = collate
+        logmel.launches = attention.launches = 0
+        attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.build_train_step = self.build
+        self.dataset_cls.collate = self.collate
+
+
+def train_run(data: str, model_folder: str, steps: int, extra=(),
+              profiled=None) -> StepProbe:
+    """``whisperseg_torch.cli.train.main`` on the shipped base checkpoint
+    (bf16 compute as shipped, float32 master weights, AdamW, the CLI's
+    default frame head) for ``steps`` steps, under a ``StepProbe``."""
+    from whisperseg_torch.cli import train as train_cli
+
+    argv = ["--initial_model_path",
+            os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad"),
+            "--model_folder", model_folder, "--train_dataset_folder", data,
+            "--max_num_iterations", str(steps), "--batch_size", str(BATCH),
+            "--total_spec_columns", "1000", "--max_length", "100",
+            "--learning_rate", "1e-4", "--warmup_steps", "5",
+            "--print_every", "5", "--num_workers", "4", *extra]
+    with StepProbe(profiled) as probe:
+        train_cli.main(argv)
+    return probe
+
+
+def train_phase(device) -> dict:
+    """Trains the base checkpoint at full width on a synthetic tone dataset
+    through the train CLI, then answers one request with the result. Fails
+    unless every step launches K2 once per encoder layer (twice under
+    remat) and each backward kernel once per layer, every batch the mel
+    kernel once, no library attention kernel (SDPA, cuDNN) runs in the
+    profiled steps, every loss is finite and the last five steps' mean loss
+    is below the first five's. Returns the backward kernels' launches."""
+    import tempfile
+
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts, write_tone_dataset
+
+    layers = 6  # the base checkpoint's encoder layers
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_tone_dataset(os.path.join(tmp, "data"), TRAIN_FILES,
+                                  seed=500)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        probe = train_run(data, os.path.join(tmp, "model"), TRAIN_STEPS,
+                          profiled=TRAIN_PROFILED)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        k1 = logmel.launches
+        timed_ms = np.array([t * 1e3 for i, t in enumerate(probe.times)
+                             if i >= TRAIN_TIMED_FROM
+                             and not TRAIN_PROFILED[0] <= i < TRAIN_PROFILED[1]])
+        losses = probe.losses
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        med = float(np.median(timed_ms))
+        clip_s = 1000 * SPEC_TIME_STEP
+        print(f"  {len(probe.times)} steps of batch {BATCH} x {clip_s:.1f} s "
+              f"in {wall:.1f} s (data, model load and saves included); steps "
+              f"{TRAIN_TIMED_FROM}.. (unprofiled, synchronized): median "
+              f"{med:.2f} ms, min {timed_ms.min():.2f}, max {timed_ms.max():.2f},"
+              f" p10-p90 {np.percentile(timed_ms, 10):.2f}-"
+              f"{np.percentile(timed_ms, 90):.2f} ms; "
+              f"{BATCH * clip_s / med * 1e3:.1f} audio-s trained per s; peak "
+              f"device memory {peak:.0f} MiB", flush=True)
+        print(f"  loss: first 5 steps {first:.4f}, last 5 {last:.4f}; all "
+              f"{', '.join(f'{x:.3f}' for x in losses)}", flush=True)
+        print(f"  launches per step (K2, dkv, dq): {sorted(set(probe.launches))}"
+              f"; K1 {k1} for {probe.collates} collated batches", flush=True)
+        groups = report_profile(
+            probe.prof, probe.prof_wall,
+            f"{TRAIN_PROFILED[1] - TRAIN_PROFILED[0]} training steps",
+            TRAIN_GROUPS)
+        bwd = groups.get("dkv", 0.0) + groups.get("dq", 0.0)
+        kernels = bwd + groups.get("K2 attention_hm", 0.0)
+        busy = max(groups.get("busy", 0.0), 1e-9)
+        print(f"  the three attention kernels: {kernels:.3f} ms, "
+              f"{100 * kernels / busy:.1f} % of the device's busy time; the "
+              f"two backward kernels {100 * bwd / busy:.1f} %", flush=True)
+        library = {e.name for e in probe.prof.events() if any(
+            k in e.name.lower() for k in ("fmha", "flash", "cudnn",
+                                          "efficient_attention"))}
+        if library:  # the encoder's attention must be the port's kernels
+            raise AssertionError(f"library attention kernels ran: {library}")
+        if set(probe.launches) != {(layers, layers, layers)}:
+            raise AssertionError(f"launches per step {probe.launches}")
+        if k1 != probe.collates or probe.collates < TRAIN_STEPS:
+            raise AssertionError(f"K1 launches {k1} for {probe.collates} batches")
+        if not (all(np.isfinite(losses)) and last < first):
+            raise AssertionError(f"losses {losses}")
+        bwd_launches = {"attention_hm_bwd_dkv": sum(x[1] for x in probe.launches),
+                        "attention_hm_bwd_dq": sum(x[2] for x in probe.launches)}
+
+        torch.cuda.reset_peak_memory_stats()
+        remat = train_run(data, os.path.join(tmp, "model_remat"), 5,
+                          extra=("--dropout", "0.1", "--remat", "1"))
+        print(f"  --dropout 0.1 --remat 1, 5 steps: launches per step (K2, "
+              f"dkv, dq) {sorted(set(remat.launches))}; losses "
+              f"{', '.join(f'{x:.3f}' for x in remat.losses)}; median "
+              f"{np.median(remat.times[1:]) * 1e3:.2f} ms a step; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB",
+              flush=True)
+        if set(remat.launches) != {(2 * layers, layers, layers)} \
+                or not all(np.isfinite(remat.losses)):
+            raise AssertionError(f"remat run: launches {remat.launches}, "
+                                 f"losses {remat.losses}")
+
+        seg = Segmenter.from_pretrained(
+            os.path.join(tmp, "model", "final_checkpoint"), device=device)
+        audio = tone_bursts(600, duration=10.0)
+        attention.launches = logmel.launches = 0
+        attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
+        table, dt = timed(lambda: seg.segment(audio, SR))
+        bwd = attention.launches_bwd_dkv + attention.launches_bwd_dq
+        print(f"  the trained checkpoint, bfloat16: a 10 s request -> "
+              f"{len(table['onset'])} segments in {dt:.3f} s (launches K1 "
+              f"{logmel.launches}, K2 {attention.launches}, backward {bwd})",
+              flush=True)
+        if not table["onset"] or bwd or \
+                attention.launches != layers * logmel.launches:
+            raise AssertionError(f"serving the trained checkpoint: {table}")
+    return bwd_launches
 
 
 # --------------------------------------------------------------------- main
@@ -612,6 +1000,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from whisperseg_torch.ops import _build
 
+    start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     print(f"[setup] {card}; torch {torch.__version__} (CUDA {torch.version.cuda})",
@@ -624,7 +1013,7 @@ def main() -> int:
     print("[kernels] each against its plain version on the card", flush=True)
     rows = [check_melproject(device), check_attention(device),
             check_qdot(device, 8), check_qdot(device, 4),
-            check_cross_attention(device)]
+            check_cross_attention(device), *check_attention_backward(device)]
 
     print("[golden] tiny checkpoint, float32, beam 4, 3 trials", flush=True)
     golden_phase(device)
@@ -642,18 +1031,24 @@ def main() -> int:
         qseg, counts, _ = serve_phase(device, QUANT_REQUESTS, dtype, int8_kv,
                                       baseline=segments)
         launches.update({name: counts[name] for name in names})
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        if not row["launches"] > 0:
-            raise AssertionError(f"{row['name']} was never launched on its path")
 
     print("[profile] bfloat16", flush=True)
     profile_phase(seg)
     print("[profile] int8 with int8_kv", flush=True)
     profile_phase(qseg, int8_kv=True)
 
+    print("[train] base checkpoint through the train CLI, bf16 compute, "
+          "float32 master weights, AdamW", flush=True)
+    launches.update(train_phase(device))
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        if not row["launches"] > 0:
+            raise AssertionError(f"{row['name']} was never launched on its path")
+
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(f"[done] all phases passed in {time.perf_counter() - start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

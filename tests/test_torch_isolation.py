@@ -51,7 +51,12 @@ def test_no_jax_or_reference_package_import_anywhere():
     assert len(files) > 10
     scanned = {os.path.relpath(f, ROOT) for f in files}
     assert {"whisperseg_torch/ops/quant.py", "whisperseg_torch/ops/dot.py",
-            "whisperseg_torch/ops/cross_attention.py"} <= scanned
+            "whisperseg_torch/ops/cross_attention.py",
+            "whisperseg_torch/training/trainer.py",
+            "whisperseg_torch/cli/train.py", "whisperseg_torch/data.py",
+            "whisperseg_torch/audio/io.py", "whisperseg_torch/evaluate.py",
+            "whisperseg_torch/scoring.py",
+            "whisperseg_torch/profiling.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -66,15 +71,54 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
         Frontend(32000, 0.0025).features_for_clips(np.zeros((1, 8000)), 100)
 
 
+def test_cpu_training_without_jax(tmp_path):
+    """Two steps of ``run_training(device="cpu")`` from a checkpoint and a
+    tone dataset the port writes itself, with JAX unimportable."""
+    code = (
+        "import os, sys; sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from whisperseg_torch.checkpoint import save_checkpoint\n"
+        "from whisperseg_torch.models.config import WhisperConfig\n"
+        "from whisperseg_torch.models.whisper import init_params\n"
+        "from whisperseg_torch.synthetic import write_tone_dataset\n"
+        "from whisperseg_torch.training import TrainArgs, run_training\n"
+        f"root = {str(tmp_path)!r}\n"
+        "cfg = WhisperConfig(d_model=128, encoder_layers=1, decoder_layers=1,\n"
+        "    num_heads=2, d_ff=256, max_source_positions=100,\n"
+        "    max_target_positions=32, total_spec_columns=200,\n"
+        "    compute_dtype='float32')\n"
+        "save_checkpoint(os.path.join(root, 'init'),\n"
+        "                init_params(torch.Generator().manual_seed(0), cfg), cfg)\n"
+        "data = write_tone_dataset(os.path.join(root, 'data'), 2, sr=16000,\n"
+        "                          duration=2.0, spec_time_step=0.005)\n"
+        "final = run_training(TrainArgs(initial_model_path=os.path.join(root, 'init'),\n"
+        "    model_folder=os.path.join(root, 'model'), train_dataset_folder=data,\n"
+        "    max_num_iterations=2, batch_size=2, max_length=16,\n"
+        "    total_spec_columns=200, frame_head=True, print_every=1,\n"
+        "    device='cpu'))\n"
+        "assert final and os.path.exists(os.path.join(final, 'params.npz'))\n"
+        "assert not any(m == 'whisperseg_tpu' or m.startswith('whisperseg_tpu.')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_wrappers_count_no_launch_on_cpu_tensors():
     logmel.launches = attention.launches = 0
+    attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
     Frontend(32000, 0.0025).features_for_clips(
         np.random.RandomState(0).randn(2, 8000).astype(np.float32), 100,
         device="cpu")
     q = torch.zeros(1, 2, 64, 64)
     attention.fused_attention_head_major(64, q, torch.zeros(1, 2, 64, 64),
                                          torch.zeros(1, 2, 64, 64))
+    leaves = [torch.randn(1, 2, 64, 64, requires_grad=True) for _ in range(3)]
+    attention.encoder_attention(50, *leaves).sum().backward()
     assert logmel.launches == 0 and attention.launches == 0
+    assert attention.launches_bwd_dkv == attention.launches_bwd_dq == 0
 
 
 @pytest.mark.parametrize("inference_dtype", ["int8", "int4"])

@@ -1,6 +1,8 @@
-"""Checkpoint load: ``config.json`` + ``params.npz`` -> (tensor tree, config).
+"""Checkpoints: ``config.json`` + ``params.npz`` <-> (tensor tree, config).
 
-Reads the JAX package's checkpoint directories as they are. Parameters keep
+Reads and writes the JAX package's checkpoint directories as they are, and
+keeps its training-checkpoint lifecycle (``checkpoint-{step}`` directories,
+pruning, ``final_checkpoint``). Parameters keep
 the JAX layouts: stacked per-layer weights ``[L, in, out]`` applied as
 ``x @ w`` and conv kernels ``[3, in, out]`` (the encoder runs each conv as one
 matmul over the three taps, models/whisper.py), so a tree moves between the
@@ -12,7 +14,9 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+import re
+import shutil
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,3 +149,77 @@ def load_checkpoint(directory: str) -> Tuple[dict, WhisperConfig]:
     params = _map(_unflatten(flat), lambda t: t.float())
     _check_tree(params, config)
     return params, config
+
+
+# ------------------------------------------------------------------ saving
+
+
+def save_checkpoint(directory: str, params: dict, config: WhisperConfig,
+                    step: Optional[int] = None) -> str:
+    """Write ``params.npz`` (flat dotted keys, float32) and ``config.json``
+    to ``directory``; ``step`` is stamped into the config's
+    ``current_step``."""
+    os.makedirs(directory, exist_ok=True)
+    if step is not None:
+        config.current_step = int(step)
+    np.savez(os.path.join(directory, "params.npz"),
+             **_flatten(params_to_numpy(params)))
+    meta = config.to_dict()
+    meta["__storage_dtype__"] = "float32"
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    return directory
+
+
+def list_checkpoints(model_folder: str) -> List[str]:
+    """``checkpoint-*`` directories sorted by step."""
+    if not os.path.isdir(model_folder):
+        return []
+    found = []
+    for name in os.listdir(model_folder):
+        m = re.fullmatch(r"checkpoint-(\d+)", name)
+        if m:
+            found.append((int(m.group(1)), os.path.join(model_folder, name)))
+    return [p for _, p in sorted(found)]
+
+
+def save_training_checkpoint(model_folder: str, params: dict,
+                             config: WhisperConfig, step: int,
+                             max_to_keep: int = -1,
+                             keep_step: Optional[int] = None) -> str:
+    """Write ``model_folder/checkpoint-{step}`` and prune the oldest beyond
+    ``max_to_keep``, never ``checkpoint-{keep_step}`` (the best validation
+    step, which :func:`finalize_best_checkpoint` may promote)."""
+    path = os.path.join(model_folder, f"checkpoint-{step}")
+    save_checkpoint(path, params, config, step=step)
+    if max_to_keep is not None and max_to_keep > 0:
+        protected = (os.path.join(model_folder, f"checkpoint-{keep_step}")
+                     if keep_step is not None else None)
+        ckpts = [c for c in list_checkpoints(model_folder) if c != protected]
+        for old in ckpts[:-max_to_keep]:
+            shutil.rmtree(old, ignore_errors=True)
+    return path
+
+
+def finalize_best_checkpoint(model_folder: str,
+                             best_step: Optional[int]) -> Optional[str]:
+    """Copy the winning checkpoint (``best_step``, else the newest) to
+    ``final_checkpoint`` and delete the ``checkpoint-*`` directories."""
+    ckpts = list_checkpoints(model_folder)
+    if not ckpts:
+        return None
+    src = ckpts[-1]
+    if best_step is not None:
+        best = os.path.join(model_folder, f"checkpoint-{best_step}")
+        if best in ckpts:
+            src = best
+        else:
+            print(f"Warning: best-validation checkpoint-{best_step} no longer "
+                  f"exists (pruned?); falling back to {src}")
+    dst = os.path.join(model_folder, "final_checkpoint")
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(src, dst)
+    for c in ckpts:
+        shutil.rmtree(c, ignore_errors=True)
+    return dst

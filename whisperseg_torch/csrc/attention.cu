@@ -8,6 +8,10 @@
 //   p[j]  = exp(s[j] - max(s)) rounded to the input type
 //   o     = (sum_j p[j] v[b,h/g,j,:]) / sum_j p[j]   (in the input type)
 // with g = H / Hkv query heads sharing one K/V head (grouped-query attention).
+// When the caller passes an ``lse`` buffer (training), each row also writes
+// its float32 log-sum-exp max(s) + log(sum_j p[j]): the residual the
+// backward kernels (attention_bwd.cu) rebuild the probabilities from, as
+// JAX's stock flash-attention forward saves its row statistics l and m.
 //
 // Bound on an H100: at the main path's shape (base model: B 4, H 8, Sp 512,
 // hd 64, bf16) the kernel must move 8.4 MB (q, k, v in, o out) and do about
@@ -64,8 +68,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_hm_kernel(const T* __restrict__ q, const T* __restrict__ kt,
-                    const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-                    int Sp, int valid_len, float scale) {
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int H, int Hkv, int Sp,
+                    int valid_len, float scale) {
   constexpr int kQLd = HD + 4;
   constexpr int kCols = HD / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -203,11 +208,14 @@ attention_hm_kernel(const T* __restrict__ q, const T* __restrict__ kt,
     for (int c = 0; c < kCols; ++c)
       og[row * HD + tx + 16 * c] = from_float<T>(acc[r][c] * inv);
   }
+  if (lse != nullptr && tid < kRows)
+    lse[(long long)(b * H + h) * Sp + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* kt, const void* v, void* o, int B, int H,
-           int Hkv, int Sp, int valid_len, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* kt, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int Sp, int valid_len, float scale,
+           cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<HD>() * sizeof(float);
   // The shared-memory limit is an attribute of the current device's context,
   // so it is raised on every launch (a cheap call), never cached per process.
@@ -218,8 +226,8 @@ int launch(const void* q, const void* kt, const void* v, void* o, int B, int H,
   const dim3 grid(Sp / kRows, H, B);
   attention_hm_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kt),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, Sp, valid_len,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Hkv, Sp,
+      valid_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -227,25 +235,26 @@ int launch(const void* q, const void* kt, const void* v, void* o, int B, int H,
 
 // q: [B, H, Sp, hd]; kt: [B, Hkv, hd, Sp]; v: [B, Hkv, Sp, hd]; o: [B, H, Sp,
 // hd]; all contiguous, of one type: float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1). Sp must be a multiple of 64, hd 64 or 128, H a multiple of
-// Hkv; scale multiplies the float32 scores (hd^-0.5). Returns the
-// cudaGetLastError() code of the launch.
+// (is_bf16 = 1). lse: NULL, or float32 [B, H, Sp] for the rows' log-sum-exp.
+// Sp must be a multiple of 64, hd 64 or 128, H a multiple of Hkv; scale
+// multiplies the float32 scores (hd^-0.5). Returns the cudaGetLastError()
+// code of the launch.
 extern "C" int ws_attention_hm(const void* q, const void* kt, const void* v,
-                               void* o, int B, int H, int Hkv, int Sp, int hd,
-                               int valid_len, float scale, int is_bf16,
-                               cudaStream_t stream) {
+                               void* o, float* lse, int B, int H, int Hkv,
+                               int Sp, int hd, int valid_len, float scale,
+                               int is_bf16, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sp <= 0 ||
       Sp % kRows != 0)
     return (int)cudaErrorInvalidValue;
   if (hd == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, kt, v, o, B, H, Hkv, Sp,
-                                               valid_len, scale, stream)
-                   : launch<float, 64>(q, kt, v, o, B, H, Hkv, Sp, valid_len,
-                                       scale, stream);
+    return is_bf16 ? launch<__nv_bfloat16, 64>(q, kt, v, o, lse, B, H, Hkv,
+                                               Sp, valid_len, scale, stream)
+                   : launch<float, 64>(q, kt, v, o, lse, B, H, Hkv, Sp,
+                                       valid_len, scale, stream);
   if (hd == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, kt, v, o, B, H, Hkv, Sp,
-                                                valid_len, scale, stream)
-                   : launch<float, 128>(q, kt, v, o, B, H, Hkv, Sp, valid_len,
-                                        scale, stream);
+    return is_bf16 ? launch<__nv_bfloat16, 128>(q, kt, v, o, lse, B, H, Hkv,
+                                                Sp, valid_len, scale, stream)
+                   : launch<float, 128>(q, kt, v, o, lse, B, H, Hkv, Sp,
+                                        valid_len, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

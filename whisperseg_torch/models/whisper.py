@@ -17,16 +17,30 @@ int8 cross K/V every single-token step runs the kernel of
 ops/cross_attention.py, MHA or GQA, whatever the width: the JAX call site's
 further gates (MHA only, Dkv >= 256) answer a TPU compiler fault and a TPU
 timing policy, and do not carry over.
+
+The training half: parameter init, dropout, ``encoder_forward(train=...)``
+with remat, the teacher-forced ``decoder_forward_train``, the token loss
+and the frame-head loss. Parameters are float32 leaf tensors; compute casts
+to ``cfg.compute_dtype`` as ``_dot`` does. Under autograd the encoder's
+attention is ``EncoderAttention`` (forward kernel plus two backward kernels,
+ops/attention.py). Dropout draws from ``torch.Generator``s: each layer's
+seed is drawn from the caller's generator before the layer runs, and its
+masks come from a generator made from that seed inside the layer, so a
+rematerialized layer makes the same masks (JAX splits one key per layer).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import fused_attention_head_major
+from .. import tokenizer as tok
+from ..ops.attention import encoder_attention
 from ..ops.cross_attention import (cross_attention_int8, dequantize_kv,
                                    quantize_kv_for_kernel)
 from ..ops.dot import dot_f32
@@ -44,6 +58,125 @@ def compute_dtype(cfg: WhisperConfig) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unsupported compute_dtype {cfg.compute_dtype!r}; "
                          f"choose from {sorted(_DTYPES)}") from None
+
+
+# ---------------------------------------------------------------------- init
+
+
+def sinusoid_position_table(length: int, channels: int) -> np.ndarray:
+    """Whisper's sinusoidal position embedding (sin half, then cos half)."""
+    assert channels % 2 == 0
+    log_timescale_increment = math.log(10000.0) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)],
+                          axis=1).astype(np.float32)
+
+
+def _dense_init(gen: torch.Generator, shape, scale: Optional[float] = None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    return torch.randn(shape, generator=gen) * scale
+
+
+def _layer_params(gen: torch.Generator, cfg: WhisperConfig, cross: bool) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    dkv = cfg.kv_heads * cfg.head_dim  # < d under grouped-query attention
+    ones, zeros = torch.ones, torch.zeros
+    p = {
+        "ln1_g": ones(d), "ln1_b": zeros(d),
+        "q_w": _dense_init(gen, (d, d)), "q_b": zeros(d),
+        "k_w": _dense_init(gen, (d, dkv)),
+        "v_w": _dense_init(gen, (d, dkv)), "v_b": zeros(dkv),
+        "o_w": _dense_init(gen, (d, d)), "o_b": zeros(d),
+        "ln2_g": ones(d), "ln2_b": zeros(d),
+        "fc1_w": _dense_init(gen, (d, f)), "fc1_b": zeros(f),
+        "fc2_w": _dense_init(gen, (f, d)), "fc2_b": zeros(d),
+    }
+    if cross:
+        p.update({
+            "lnx_g": ones(d), "lnx_b": zeros(d),
+            "xq_w": _dense_init(gen, (d, d)), "xq_b": zeros(d),
+            "xk_w": _dense_init(gen, (d, dkv)),
+            "xv_w": _dense_init(gen, (d, dkv)), "xv_b": zeros(dkv),
+            "xo_w": _dense_init(gen, (d, d)), "xo_b": zeros(d),
+        })
+    return p
+
+
+def _stack_layers(gen: torch.Generator, cfg: WhisperConfig, n: int,
+                  cross: bool) -> Params:
+    layers = [_layer_params(gen, cfg, cross) for _ in range(n)]
+    return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
+
+
+def init_params(gen: torch.Generator, cfg: WhisperConfig) -> Params:
+    """Fresh float32 parameters on the CPU, drawn from ``gen`` (the JAX
+    package's shapes and scales; its random stream cannot be matched)."""
+    d = cfg.d_model
+    encoder = {
+        "conv1_w": _dense_init(gen, (3, cfg.num_mel_bins, d),
+                               scale=1.0 / math.sqrt(3 * cfg.num_mel_bins)),
+        "conv1_b": torch.zeros(d),
+        "conv2_w": _dense_init(gen, (3, d, d), scale=1.0 / math.sqrt(3 * d)),
+        "conv2_b": torch.zeros(d),
+        "pos_emb": torch.from_numpy(
+            sinusoid_position_table(cfg.max_source_positions, d)),
+        "layers": _stack_layers(gen, cfg, cfg.encoder_layers, cross=False),
+        "ln_post_g": torch.ones(d), "ln_post_b": torch.zeros(d),
+    }
+    decoder = {
+        "tok_emb": _dense_init(gen, (cfg.vocab_size, d), scale=0.02),
+        "pos_emb": torch.zeros(cfg.max_target_positions, d),
+        "layers": _stack_layers(gen, cfg, cfg.decoder_layers, cross=True),
+        "ln_post_g": torch.ones(d), "ln_post_b": torch.zeros(d),
+    }
+    params = {"encoder": encoder, "decoder": decoder}
+    if cfg.frame_head:
+        params["frame_head"] = init_frame_head(gen, cfg)
+    return params
+
+
+def init_frame_head(gen: torch.Generator, cfg: WhisperConfig) -> Params:
+    """Parameters of the per-encoder-position head: LN -> dense -> gelu ->
+    dense to [vocal, onset, offset] (+ cluster logits)."""
+    d = cfg.d_model
+    hidden = max(d // 2, 64)
+    out = 3 + cfg.frame_head_clusters
+    return {
+        "ln_g": torch.ones(d), "ln_b": torch.zeros(d),
+        "h1_w": _dense_init(gen, (d, hidden)), "h1_b": torch.zeros(hidden),
+        "h2_w": _dense_init(gen, (hidden, out)), "h2_b": torch.zeros(out),
+    }
+
+
+def ensure_frame_head(params: Params, cfg: WhisperConfig,
+                      gen: torch.Generator) -> Params:
+    """Add a freshly initialized frame head to a tree that lacks one; on a
+    change of cluster count keep the trained layers and widen or narrow the
+    output layer. A head of the right width is kept as it is."""
+    fh = params.get("frame_head")
+    want_out = 3 + cfg.frame_head_clusters
+    if fh is not None and fh["h2_w"].shape[-1] == want_out:
+        return params
+    new = dict(params)
+    head = init_frame_head(gen, cfg)
+    if fh is not None:
+        keep = min(fh["h2_w"].shape[-1], want_out)
+        w2, b2 = head["h2_w"].clone(), torch.zeros(want_out)
+        w2[:, :keep] = fh["h2_w"][:, :keep].detach().cpu()
+        b2[:keep] = fh["h2_b"][:keep].detach().cpu()
+        head = {k: v.detach().cpu() for k, v in fh.items()}
+        head["h2_w"], head["h2_b"] = w2, b2
+    new["frame_head"] = head
+    return new
+
+
+def num_parameters(params: Params) -> int:
+    def count(node):
+        if isinstance(node, dict):
+            return sum(count(v) for v in node.values())
+        return int(node.numel())
+    return count(params)
 
 
 # ---------------------------------------------------------------- primitives
@@ -100,11 +233,20 @@ def _attention(q, k, v, cdt, mask=None):
     return out.reshape(b, lq, h * hd).float()
 
 
+def _dense(w, cdt):
+    """A quantized weight dequantized whole in ``cdt``; a plain one as it is
+    (``dot_f32`` casts it, so a float32 master weight keeps a float32
+    gradient)."""
+    if isinstance(w, (QuantTensor, Quant4Tensor)):
+        return dequantize(w, cdt)
+    return w
+
+
 def _project_heads(h, w, b, heads: int, cdt):
     """h [B, S, D] @ w [D, heads*hd] (+ b) -> [B, heads, S, hd] in cdt. Like
     the other two head-major projections it dequantizes a quantized weight
     whole, in cdt."""
-    y = dot_f32(h, dequantize(w, cdt), cdt)
+    y = dot_f32(h, _dense(w, cdt), cdt)
     if b is not None:
         y = y + b
     bsz, s, _ = y.shape
@@ -113,7 +255,7 @@ def _project_heads(h, w, b, heads: int, cdt):
 
 def _project_heads_t(h, w, heads: int, cdt):
     """h [B, S, D] @ w [D, heads*hd] -> [B, heads, hd, S] (K pre-transposed)."""
-    y = dot_f32(h, dequantize(w, cdt), cdt)
+    y = dot_f32(h, _dense(w, cdt), cdt)
     bsz, s, _ = y.shape
     return y.reshape(bsz, s, heads, -1).permute(0, 2, 3, 1).to(cdt).contiguous()
 
@@ -122,7 +264,7 @@ def _oproj_heads(a4, w, b, cdt):
     """a4 [B, H, S, hd] @ w [H*hd, D] + b -> [B, S, D] float32."""
     bsz, heads, s, hd = a4.shape
     a = a4.permute(0, 2, 1, 3).reshape(bsz, s, heads * hd)
-    return dot_f32(a, dequantize(w, cdt), cdt) + b
+    return dot_f32(a, _dense(w, cdt), cdt) + b
 
 
 def _conv3(x, w, stride: int, cdt):
@@ -144,14 +286,78 @@ def _layer(layers: Params, i: int) -> Params:
     return {k: v[i] for k, v in layers.items()}
 
 
+def _layers(layers: Params, n: int) -> List[Params]:
+    """Per-layer views of stacked ``[L, ...]`` leaves. A leaf that takes a
+    gradient is unbound once, so its backward stacks the layers' gradients in
+    one op instead of summing L full-size ones."""
+    cols = {k: (v.unbind(0) if isinstance(v, torch.Tensor) and v.requires_grad
+                else [v[i] for i in range(n)]) for k, v in layers.items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _dropout(x, rate: float, gen: torch.Generator):
+    """Keep each element with probability ``1 - rate`` and scale the kept
+    ones by ``1 / (1 - rate)``."""
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+
+def _layer_seeds(gen: Optional[torch.Generator], n: int) -> List[Optional[int]]:
+    """One dropout seed per layer, drawn before any layer runs."""
+    if gen is None:
+        raise ValueError("dropout needs a torch.Generator")
+    return torch.randint(0, 2 ** 62, (n,), generator=gen).tolist()
+
+
+def _seeded(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _run(layer_fn, remat: bool, x, *args):
+    """One layer, rematerialized in the backward under ``remat``. Its dropout
+    masks come from a seed among ``args``, so the recomputation makes the
+    same ones; the global RNG state is not involved and is not saved."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(layer_fn, x, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return layer_fn(x, *args)
+
+
 # ------------------------------------------------------------------- encoder
 
 
-def encoder_forward(params: Params, cfg: WhisperConfig,
-                    features: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(x, lp: Params, s: int, cfg: WhisperConfig, rate: float,
+                   seed: Optional[int]):
+    cdt = compute_dtype(cfg)
+    gen = _seeded(seed, x.device) if rate > 0.0 else None
+    h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    q4 = _project_heads(h, lp["q_w"], lp["q_b"], cfg.num_heads, cdt)
+    kt4 = _project_heads_t(h, lp["k_w"], cfg.kv_heads, cdt)
+    v4 = _project_heads(h, lp["v_w"], lp["v_b"], cfg.kv_heads, cdt)
+    a4 = encoder_attention(s, q4, kt4, v4)                    # [B, H, Sp, hd]
+    a = _oproj_heads(a4, lp["o_w"], lp["o_b"], cdt)
+    if rate > 0.0:
+        a = _dropout(a, rate, gen)
+    x = x + a
+    h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    h = F.gelu(_dot(h, lp["fc1_w"], cdt) + lp["fc1_b"])
+    h = _dot(h, lp["fc2_w"], cdt) + lp["fc2_b"]
+    if rate > 0.0:
+        h = _dropout(h, rate, gen)
+    return x + h
+
+
+def encoder_forward(params: Params, cfg: WhisperConfig, features: torch.Tensor,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Log-mel features [B, num_mel_bins, T] -> encoder states [B, T // 2, D]
     float32. The layers run at S rounded up to a multiple of 128 (padded rows
-    never reach a valid key: the attention kernel masks keys >= S)."""
+    never reach a valid key: the attention kernel masks keys >= S).
+    ``train`` applies ``cfg.dropout`` (seeds drawn from ``generator``);
+    ``cfg.remat`` recomputes each layer in the backward."""
     enc = params["encoder"]
     cdt = compute_dtype(cfg)
     x = features.to(cdt).transpose(1, 2)                        # [B, T, 80]
@@ -160,21 +366,14 @@ def encoder_forward(params: Params, cfg: WhisperConfig,
     s = x.shape[1]
     x = (x + enc["pos_emb"][:s]).float()
 
-    heads, kv_heads = cfg.num_heads, cfg.kv_heads
     sp = -(-s // 128) * 128
     if sp != s:
         x = F.pad(x, (0, 0, 0, sp - s))
-    for i in range(cfg.encoder_layers):
-        lp = _layer(enc["layers"], i)
-        h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
-        q4 = _project_heads(h, lp["q_w"], lp["q_b"], heads, cdt)
-        kt4 = _project_heads_t(h, lp["k_w"], kv_heads, cdt)
-        v4 = _project_heads(h, lp["v_w"], lp["v_b"], kv_heads, cdt)
-        a4 = fused_attention_head_major(s, q4, kt4, v4)        # [B, H, Sp, hd]
-        x = x + _oproj_heads(a4, lp["o_w"], lp["o_b"], cdt)
-        h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
-        h = F.gelu(_dot(h, lp["fc1_w"], cdt) + lp["fc1_b"])
-        x = x + (_dot(h, lp["fc2_w"], cdt) + lp["fc2_b"])
+    rate = cfg.dropout if train else 0.0
+    n = cfg.encoder_layers
+    seeds = _layer_seeds(generator, n) if rate > 0.0 else [None] * n
+    for lp, seed in zip(_layers(enc["layers"], n), seeds):
+        x = _run(_encoder_layer, cfg.remat, x, lp, s, cfg, rate, seed)
     return _layer_norm(x[:, :s], enc["ln_post_g"], enc["ln_post_b"])
 
 
@@ -187,6 +386,33 @@ def frame_head_forward(params: Params, cfg: WhisperConfig,
     h = _layer_norm(enc_out, fh["ln_g"], fh["ln_b"])
     h = F.gelu(_dot(h, fh["h1_w"], cdt) + fh["h1_b"])
     return (_dot(h, fh["h2_w"], cdt) + fh["h2_b"]).float()
+
+
+def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
+                    boundary_weight: float = 1.0):
+    """Multi-task frame loss: sigmoid BCE (mean over all positions) on the
+    vocal channel and, scaled by ``boundary_weight``, on the soft onset and
+    offset channels; softmax CE over the cluster logits masked to labelled
+    positions (``targets["cluster"]`` >= 0), scaled by
+    ``cluster_pos_weight``. ``targets``: [B, S] tensors."""
+    def bce(logit, target):
+        # the stable x - x z + log(1 + exp(-|x|)) form
+        return torch.mean(torch.clamp_min(logit, 0) - logit * target
+                          + torch.log1p(torch.exp(-logit.abs())))
+
+    loss = (bce(logits[..., 0], targets["vocal"])
+            + boundary_weight * (bce(logits[..., 1], targets["onset"])
+                                 + bce(logits[..., 2], targets["offset"])))
+    cluster = targets.get("cluster")
+    if cluster is not None and logits.shape[-1] > 3:
+        logp = torch.log_softmax(logits[..., 3:], dim=-1)
+        mask = cluster >= 0
+        safe = torch.where(mask, cluster, 0).long()
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+        denom = torch.clamp_min(mask.sum(), 1)
+        loss = loss + cluster_pos_weight * torch.where(
+            mask, nll, torch.zeros((), device=nll.device)).sum() / denom
+    return loss
 
 
 # ------------------------------------------------------------------- decoder
@@ -288,3 +514,95 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     x = _layer_norm(x, dec["ln_post_g"], dec["ln_post_b"])
     logits = _dot(x, dec["tok_emb"].T, cdt)
     return logits, cache_k, cache_v
+
+
+# ---------------------------------------------------------- teacher forcing
+
+
+def _decoder_layer(x, lp: Params, enc_out, causal, cfg: WhisperConfig,
+                   rate: float, seed: Optional[int]):
+    cdt = compute_dtype(cfg)
+    heads, kv_heads = cfg.num_heads, cfg.kv_heads
+    gen = _seeded(seed, x.device) if rate > 0.0 else None
+    h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    q = _split_heads(_dot(h, lp["q_w"], cdt) + lp["q_b"], heads)
+    k = _split_heads(_dot(h, lp["k_w"], cdt), kv_heads)
+    v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads)
+    a = _dot(_attention(q, k, v, cdt, mask=causal), lp["o_w"], cdt) + lp["o_b"]
+    if rate > 0.0:
+        a = _dropout(a, rate, gen)
+    x = x + a
+
+    h = _layer_norm(x, lp["lnx_g"], lp["lnx_b"])
+    q = _split_heads(_dot(h, lp["xq_w"], cdt) + lp["xq_b"], heads)
+    k = _split_heads(_dot(enc_out, lp["xk_w"], cdt), kv_heads)
+    v = _split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"], kv_heads)
+    a = _dot(_attention(q, k, v, cdt), lp["xo_w"], cdt) + lp["xo_b"]
+    if rate > 0.0:
+        a = _dropout(a, rate, gen)
+    x = x + a
+
+    h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    h = F.gelu(_dot(h, lp["fc1_w"], cdt) + lp["fc1_b"])
+    h = _dot(h, lp["fc2_w"], cdt) + lp["fc2_b"]
+    if rate > 0.0:
+        h = _dropout(h, rate, gen)
+    return x + h
+
+
+def decoder_forward_train(params: Params, cfg: WhisperConfig,
+                          enc_out: torch.Tensor, input_ids: torch.Tensor,
+                          train: bool = False,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """Teacher-forced decoder: encoder states [B, S, D] and ``input_ids``
+    [B, L] -> logits [B, L, vocab] float32, causal self-attention through the
+    einsum ``_attention`` (no kernel, as in the JAX package)."""
+    dec = params["decoder"]
+    cdt = compute_dtype(cfg)
+    l = input_ids.shape[1]
+    ids = input_ids.long()
+    # the residual stream is float32 whatever the parameters' type
+    x = (dec["tok_emb"][ids] + dec["pos_emb"][:l][None]).float()
+    causal = torch.ones((l, l), dtype=torch.bool,
+                        device=ids.device).tril()[None, None]
+    rate = cfg.dropout if train else 0.0
+    n = cfg.decoder_layers
+    seeds = _layer_seeds(generator, n) if rate > 0.0 else [None] * n
+    for lp, seed in zip(_layers(dec["layers"], n), seeds):
+        x = _run(_decoder_layer, cfg.remat, x, lp, enc_out, causal, cfg, rate,
+                 seed)
+    x = _layer_norm(x, dec["ln_post_g"], dec["ln_post_b"])
+    return _dot(x, dec["tok_emb"].T, cdt)
+
+
+def cross_entropy_loss(logits, labels, ignore_id: int = -100,
+                       timestamp_weight: float = 1.0,
+                       timestamp_sigma: float = 0.0):
+    """Mean token cross-entropy over the targets that are not ``ignore_id``.
+    ``timestamp_weight`` weighs timestamp targets against the others;
+    ``timestamp_sigma`` > 0 replaces a timestamp's one-hot target with a
+    discrete Gaussian over neighbouring columns (stddev in columns,
+    truncated at 3 sigma, renormalized; neighbours past either end clip onto
+    the edge column)."""
+    labels = labels.long()
+    mask = labels != ignore_id
+    safe = torch.where(mask, labels, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    first, last = tok.TIMESTAMP_BASE, tok.TIMESTAMP_BASE + tok.NUM_TIMESTAMPS - 1
+    is_ts = (safe >= first) & (safe <= last)
+    if timestamp_sigma and timestamp_sigma > 0:
+        k_max = max(1, int(math.ceil(3.0 * timestamp_sigma)))
+        offs = np.arange(-k_max, k_max + 1)
+        w = np.exp(-0.5 * (offs / timestamp_sigma) ** 2)
+        w = (w / w.sum()).astype(np.float32)
+        soft = torch.zeros_like(nll)
+        for k, wk in zip(offs, w):
+            idx = torch.clamp(safe + int(k), first, last)
+            soft = soft - float(wk) * logp.gather(-1, idx[..., None])[..., 0]
+        nll = torch.where(is_ts, soft, nll)
+    one = torch.ones((), device=nll.device)
+    token_w = torch.where(is_ts, one * timestamp_weight, one)
+    token_w = torch.where(mask, token_w, torch.zeros((), device=nll.device))
+    return (nll * token_w).sum() / torch.clamp_min(token_w.sum(), 1e-6)

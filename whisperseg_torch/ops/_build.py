@@ -22,7 +22,8 @@ from typing import Dict, Sequence
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("melproject", "attention", "qdot", "cross_attention_int8")
+SOURCES = ("melproject", "attention", "attention_bwd", "qdot",
+           "cross_attention_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

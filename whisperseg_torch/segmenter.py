@@ -42,6 +42,7 @@ from .models.whisper import encoder_forward, frame_head_forward
 from .ops.quant import quantize_params
 from .refine import apply_frame_postprocess, apply_postprocess
 from .runtime import resolve_device
+from .scoring import frame_score, segment_score
 
 _INFERENCE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _QUANT_BITS = {"int8": 8, "int4": 4}
@@ -114,19 +115,22 @@ class Segmenter:
     weights as per-channel int8 (the counterpart of CTranslate2's
     ``int8_float16``), ``"int4"`` as group-wise packed int4, both quantized
     from the parameters as given (float32 from a checkpoint) with the rest in
-    bfloat16."""
+    bfloat16. ``None`` keeps ``params`` itself, neither cast nor moved: a
+    training run validates on its live float32 weights, which its optimizer
+    updates in place (they must already lie on ``device``)."""
 
     def __init__(self, params, config: WhisperConfig,
-                 inference_dtype: str = "bfloat16", device=None):
+                 inference_dtype: Optional[str] = "bfloat16", device=None):
         if inference_dtype in _QUANT_BITS:
             params = quantize_params(params, bits=_QUANT_BITS[inference_dtype])
             dtype = torch.bfloat16
         elif inference_dtype in _INFERENCE_DTYPES:
             dtype = _INFERENCE_DTYPES[inference_dtype]
-        else:
+        elif inference_dtype is not None:
             raise ValueError(f"unsupported inference_dtype {inference_dtype!r}")
         self.device = resolve_device(device)
-        self.params = cast_params(params, dtype, self.device)
+        self.params = (params if inference_dtype is None
+                       else cast_params(params, dtype, self.device))
         self.config = config
         self.total_spec_columns = config.total_spec_columns
         self.cluster_codebook: Dict[str, int] = dict(config.cluster_codebook)
@@ -157,6 +161,30 @@ class Segmenter:
     @property
     def inverse_cluster_codebook(self) -> Dict[int, str]:
         return {v: k for k, v in self.cluster_codebook.items()}
+
+    def update_cluster_codebook(self, cluster_codebook: Dict[str, int]):
+        """Replace the cluster codebook, here and in the config."""
+        self.cluster_codebook = dict(cluster_codebook)
+        self.config.cluster_codebook = dict(cluster_codebook)
+
+    def segment_score(self, prediction, label, target_cluster=None,
+                      tolerance=None):
+        """Segment-wise scores (scoring.py); the tolerance defaults to four
+        spectrogram steps of the checkpoint's default configuration."""
+        if tolerance is None:
+            tolerance = self.default_segmentation_config.get(
+                "spec_time_step", 0.0025) * 4
+        return segment_score(prediction, label, target_cluster, tolerance)
+
+    def frame_score(self, prediction, label, target_cluster=None,
+                    time_per_frame_for_scoring=None):
+        """Frame-wise scores (scoring.py) on frames of at most 1 ms."""
+        if time_per_frame_for_scoring is None:
+            time_per_frame_for_scoring = min(
+                0.001, self.default_segmentation_config.get(
+                    "spec_time_step", 0.0025))
+        return frame_score(prediction, label, target_cluster,
+                           time_per_frame_for_scoring)
 
     # ------------------------------------------------------------------ slicing
 

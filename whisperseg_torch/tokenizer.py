@@ -1,4 +1,5 @@
-"""The compact 1024-token segmentation vocabulary (the part decoding needs).
+"""The compact 1024-token segmentation vocabulary (the part decoding and
+training targets need).
 
 A copy of the id layout of ``whisperseg_tpu/tokenizer.py``:
 
@@ -15,7 +16,7 @@ A copy of the id layout of ``whisperseg_tpu/tokenizer.py``:
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Sequence
 
 DIGIT_BASE = 0
 PAD_ID = 10
@@ -31,6 +32,57 @@ VOCAB_SIZE = TIMESTAMP_BASE + NUM_TIMESTAMPS  # == 1024
 
 # Decoder prompt used for both training and generation.
 PROMPT_IDS = (SOT_ID, EN_ID, NOTIMESTAMPS_ID)
+
+SPECIES_LIST = ("zebra_finch", "bengalese_finch", "mouse", "marmoset",
+                "human", "unknown", "animal")
+SPECIES_TOKEN_IDS: Dict[str, int] = {
+    name: SPECIES_BASE + i for i, name in enumerate(SPECIES_LIST)}
+
+
+def timestamp_id(col: int) -> int:
+    """Token id of the timestamp token <|col|>."""
+    if not 0 <= col < NUM_TIMESTAMPS:
+        raise ValueError(f"timestamp column {col} out of range [0, {NUM_TIMESTAMPS})")
+    return TIMESTAMP_BASE + col
+
+
+def species_token(species: str) -> int:
+    """Species name -> token id; unknown species map to <|unknown|>."""
+    return SPECIES_TOKEN_IDS.get(species, SPECIES_TOKEN_IDS["unknown"])
+
+
+def encode_cluster_string(digits: str, extra_token_ids: Dict[str, int],
+                          cluster_encodings: Dict[str, list] = None
+                          ) -> List[int]:
+    """A cluster-id digit string -> token ids: the checkpoint's recorded
+    piece sequence where ``cluster_encodings`` covers it, else greedy
+    longest match over the extended pieces, falling back to one token per
+    digit (the compact vocabulary's own encoding)."""
+    def digit(c: str) -> int:
+        return DIGIT_BASE + (ord(c) - ord("0"))
+
+    if cluster_encodings and digits in cluster_encodings:
+        ids: List[int] = []
+        for piece in cluster_encodings[digits]:
+            if len(piece) == 1:
+                ids.append(digit(piece))
+            elif piece in extra_token_ids:
+                ids.append(extra_token_ids[piece])
+            else:  # a recorded piece without its extended row: per digit
+                ids.extend(digit(c) for c in piece)
+        return ids
+    ids = []
+    i, n = 0, len(digits)
+    while i < n:
+        match = next(((extra_token_ids[digits[i:j]], j) for j in range(n, i + 1, -1)
+                      if digits[i:j] in extra_token_ids), None)
+        if match is None:
+            ids.append(digit(digits[i]))
+            i += 1
+        else:
+            ids.append(match[0])
+            i = match[1]
+    return ids
 
 
 def is_timestamp(token_id: int) -> bool:

@@ -1,0 +1,524 @@
+"""Training loop (the port of ``whisperseg_tpu/training/trainer.py``, single
+device).
+
+As in the JAX package: AdamW with biases and LayerNorm gains left out of
+weight decay, a linear warmup then linear decay schedule (HF
+``get_linear_schedule_with_warmup``), the epoch/iteration reconciliation
+with a floor of ``min_num_iterations``, periodic validation with one trial
+and greedy decoding, early stop after two validation drops past half the
+run, ``checkpoint-{step}`` pruning and ``final_checkpoint`` selection, and
+``status.json`` progress. Parameters are float32 leaf tensors on the
+training device; compute runs in ``cfg.compute_dtype``.
+
+``torch.optim.AdamW`` with a ``LambdaLR`` equals ``optax.adamw(schedule,
+weight_decay, mask)``: the same moments, bias corrections and eps, decay
+scaled by the learning rate and applied to the weights before the step, and
+the first update taken at ``schedule(0)``. Dropout and SpecAugment draw from
+a ``torch.Generator`` seeded from ``args.seed``; the data pipeline draws from
+the global ``np.random`` stream in the JAX package's order.
+
+Options of later slices raise ``NotImplementedError`` naming their ROADMAP
+item: adafactor, QAT, ``device_pool``, GQA uptraining, splice synthesis,
+wandb and profiler hooks, multi-device runs, HF initial models.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import (finalize_best_checkpoint, load_checkpoint,
+                          save_training_checkpoint)
+from ..data import (FRAME_KEYS, DataLoader, VocalSegDataset,
+                    get_audio_and_label_paths, get_cluster_codebook, load_data,
+                    resolve_default_config, slice_audios_and_labels,
+                    train_val_split)
+from ..evaluate import evaluate
+from ..models.config import WhisperConfig, make_config
+from ..models.whisper import (cross_entropy_loss, decoder_forward_train,
+                              encoder_forward, ensure_frame_head,
+                              frame_head_forward, frame_head_loss, init_params,
+                              sinusoid_position_table)
+from ..profiling import StepTimer
+from ..runtime import resolve_device
+from ..segmenter import Segmenter
+from ..tokenizer import NUM_TIMESTAMPS, VOCAB_SIZE
+
+
+@dataclass
+class TrainArgs:
+    """The JAX package's training options, plus ``device``."""
+
+    initial_model_path: str = "base"
+    model_folder: str = "model"
+    train_dataset_folder: str = ""
+    n_device: Optional[int] = None
+    print_every: int = 100
+    validate_every: Optional[int] = None
+    validate_per_epoch: bool = False
+    save_every: Optional[int] = None
+    save_per_epoch: bool = False
+    max_num_epochs: int = 3
+    max_num_iterations: Optional[int] = None
+    min_num_iterations: int = 500
+    val_ratio: float = 0.0
+    max_length: int = 100
+    total_spec_columns: int = 1000
+    batch_size: int = 4
+    learning_rate: float = 3e-6
+    lr_schedule: str = "linear"
+    max_to_keep: int = -1
+    seed: int = 66100
+    weight_decay: float = 0.01
+    warmup_steps: int = 100
+    freeze_encoder: bool = False
+    optimizer: str = "adamw"
+    qat_bits: int = 0
+    timestamp_loss_weight: float = 1.0  # >1 weighs timestamp targets up
+    timestamp_label_sigma: float = 0.0  # >0: Gaussian-soft timestamp targets
+    frame_head: bool = False  # train the encoder's frame head jointly
+    frame_head_weight: float = 1.0
+    frame_boundary_weight: float = 1.0
+    frame_label_sigma: float = 1.0
+    spec_augment: bool = False
+    synth_augment: int = 0
+    dropout: float = 0.0
+    num_workers: int = 4  # item-loading threads of the DataLoader
+    clear_cluster_codebook: bool = True
+    ignore_cluster: bool = False
+    tp: int = 1
+    fsdp: bool = False
+    remat: bool = False
+    device_pool: bool = False
+    gqa_kv_heads: int = 0
+    project: str = "whisperseg-tpu"
+    run_name: Optional[str] = None
+    use_wandb: bool = False
+    profile_dir: Optional[str] = None
+    device: Optional[str] = None  # the card unless "cpu" is asked for
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue A "
+                               f"item {item}")
+
+
+def _check_supported(args: TrainArgs) -> None:
+    training = "11 (training: {})".format
+    for on, what, item in (
+            (args.optimizer != "adamw", f"optimizer={args.optimizer!r}",
+             training("adafactor")),
+            (args.qat_bits, "qat_bits", training("QAT")),
+            (args.device_pool, "device_pool", training("device_pool")),
+            (args.gqa_kv_heads, "gqa_kv_heads", training("GQA uptraining")),
+            (args.synth_augment, "synth_augment", training("synth_augment")),
+            (args.use_wandb, "use_wandb", training("wandb and profiler hooks")),
+            (args.profile_dir, "profile_dir", training("wandb and profiler hooks")),
+            (args.tp > 1, "tp > 1", "13 (multi-GPU)"),
+            (args.fsdp, "fsdp", "13 (multi-GPU)"),
+            ((args.n_device or 1) > 1, "n_device > 1", "13 (multi-GPU)")):
+        if on:
+            raise _not_ported(what, item)
+
+
+def load_model_any(path_or_name: str, total_spec_columns: int, dropout: float):
+    """An initial model: a checkpoint directory (``params.npz``), whose
+    encoder position table is cut or sinusoid-extended to
+    ``total_spec_columns // 2`` rows, or a family size name ('tiny' ..
+    'large') for fresh weights. Returns float32 CPU tensors and the config."""
+    if os.path.isdir(path_or_name):
+        if not os.path.exists(os.path.join(path_or_name, "params.npz")):
+            raise _not_ported("an HF-format initial model", "12 (HF import/export)")
+        params, cfg = load_checkpoint(path_or_name)
+        cfg.dropout = dropout
+        cfg.total_spec_columns = total_spec_columns
+        new_positions = total_spec_columns // 2
+        pos = params["encoder"]["pos_emb"]
+        if pos.shape[0] > new_positions:
+            pos = pos[:new_positions]
+        elif pos.shape[0] < new_positions:
+            ext = torch.from_numpy(sinusoid_position_table(new_positions,
+                                                           pos.shape[1]))
+            ext[: pos.shape[0]] = pos
+            pos = ext
+        params["encoder"]["pos_emb"] = pos.contiguous()
+        cfg.max_source_positions = new_positions
+        return params, cfg
+    cfg = make_config(path_or_name, total_spec_columns=total_spec_columns,
+                      dropout=dropout)
+    return init_params(torch.Generator().manual_seed(0), cfg), cfg
+
+
+def _decay_mask(params) -> dict:
+    """True where weight decay applies: every leaf but biases (``_b``) and
+    norm gains (``_g``)."""
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return not (name.endswith("_b") or name.endswith("_g"))
+
+    return walk(params)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _leaves(v, name)
+        else:
+            yield name, v
+
+
+def make_optimizer(params, learning_rate: float, weight_decay: float,
+                   warmup_steps: int, total_steps: int, lr_schedule: str,
+                   freeze_encoder: bool, optimizer: str = "adamw"):
+    """(AdamW, its LambdaLR, schedule). Two parameter groups, with and
+    without weight decay; under ``freeze_encoder`` the encoder's leaves are
+    left out (the JAX package zeroes their updates), so they never change.
+    The group learning rate is ``schedule(step)`` itself."""
+    if optimizer != "adamw":
+        raise _not_ported(f"optimizer={optimizer!r}", "11 (training: adafactor)")
+    if lr_schedule == "linear":
+        # HF get_linear_schedule_with_warmup
+        def schedule(step: int) -> float:
+            if step < warmup_steps:
+                return learning_rate * step / max(warmup_steps, 1)
+            return learning_rate * max(
+                0.0, (total_steps - step) / max(total_steps - warmup_steps, 1))
+    else:
+        def schedule(step: int) -> float:
+            return learning_rate
+    mask = dict(_leaves(_decay_mask(params)))
+    decay, no_decay = [], []
+    for name, leaf in _leaves(params):
+        if freeze_encoder and name.split(".")[0] == "encoder":
+            continue
+        (decay if mask[name] else no_decay).append(leaf)
+    opt = torch.optim.AdamW(
+        [{"params": decay, "weight_decay": weight_decay},
+         {"params": no_decay, "weight_decay": 0.0}],
+        lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    return opt, scheduler, schedule
+
+
+def spec_augment(features: torch.Tensor, gen: torch.Generator,
+                 n_freq_masks: int = 2, freq_width: int = 10,
+                 n_time_masks: int = 2, time_width: int = 30) -> torch.Tensor:
+    """SpecAugment-style frequency and time stripes per example, filled with
+    the example's feature minimum (the frontend's padding value, so a mask
+    looks like silence). Stripe starts are drawn from ``gen``."""
+    b, m, t = features.shape
+    dev = features.device
+    fill = features.amin(dim=(1, 2), keepdim=True)
+    masked = features
+    for idx, n_masks, width, size in (
+            (torch.arange(m, device=dev)[None, :, None], n_freq_masks, freq_width, m),
+            (torch.arange(t, device=dev)[None, None, :], n_time_masks, time_width, t)):
+        for _ in range(n_masks):
+            start = torch.randint(0, max(size - width, 1), (b, 1, 1),
+                                  generator=gen).to(dev)
+            masked = torch.where((idx >= start) & (idx < start + width), fill,
+                                 masked)
+    return masked
+
+
+def batch_to_device(batch: Dict, device) -> Dict:
+    """Collated numpy arrays -> tensors on ``device`` (ids and labels as
+    int64, frame targets as float32 and int64 clusters)."""
+    out = {"input_features": batch["input_features"].to(device),
+           "decoder_input_ids": torch.from_numpy(batch["decoder_input_ids"]).to(
+               device, torch.long),
+           "labels": torch.from_numpy(batch["labels"]).to(device, torch.long)}
+    if "frame_targets" in batch:
+        ft = batch["frame_targets"]
+        out["frame_targets"] = {
+            k: torch.from_numpy(ft[k]).to(
+                device, torch.long if k == "cluster" else torch.float32)
+            for k in FRAME_KEYS}
+    return out
+
+
+def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0,
+                     timestamp_loss_weight: float = 1.0,
+                     timestamp_label_sigma: float = 0.0,
+                     use_spec_augment: bool = False,
+                     frame_head_weight: float = 0.0,
+                     frame_boundary_weight: float = 1.0):
+    """``step(params, batch, gen) -> loss``: forward, backward, one AdamW
+    update and one schedule step. ``batch`` holds tensors on the params'
+    device (``batch_to_device``); ``gen`` (a CPU ``torch.Generator``) feeds
+    dropout and SpecAugment. The loss comes back as a device scalar, so the
+    host does not wait for the step; this step's gradients stay in each
+    leaf's ``.grad``."""
+    if qat_bits:
+        raise _not_ported("qat_bits", "11 (training: QAT)")
+    train = cfg.dropout > 0
+
+    def step(params, batch, gen: torch.Generator) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        features = batch["input_features"]
+        if use_spec_augment:
+            features = spec_augment(features, gen)
+        enc = encoder_forward(params, cfg, features, train=train, generator=gen)
+        logits = decoder_forward_train(params, cfg, enc,
+                                       batch["decoder_input_ids"], train=train,
+                                       generator=gen)
+        loss = cross_entropy_loss(logits, batch["labels"],
+                                  timestamp_weight=timestamp_loss_weight,
+                                  timestamp_sigma=timestamp_label_sigma)
+        if frame_head_weight > 0 and "frame_targets" in batch:
+            floss = frame_head_loss(frame_head_forward(params, cfg, enc),
+                                    batch["frame_targets"],
+                                    boundary_weight=frame_boundary_weight)
+            loss = loss + frame_head_weight * floss
+        loss.backward()
+        optimizer.step()
+        scheduler.step()
+        return loss.detach()
+
+    return step
+
+
+def training_params(params, device, freeze_encoder: bool = False) -> dict:
+    """float32 leaves on ``device`` that take gradients (the encoder's not,
+    under ``freeze_encoder``)."""
+    def walk(tree, frozen):
+        return {k: walk(v, frozen or (freeze_encoder and k == "encoder"))
+                if isinstance(v, dict) else
+                v.detach().to(device=device, dtype=torch.float32)
+                .contiguous().requires_grad_(not frozen)
+                for k, v in tree.items()}
+
+    return walk(params, False)
+
+
+def _write_status(model_folder: str, progress: int, eta_s: int) -> None:
+    with open(os.path.join(model_folder, "status.json"), "w") as f:
+        json.dump({"progress": progress,
+                   "eta": "%02d:%02d:%02d" % (eta_s // 3600, (eta_s % 3600) // 60,
+                                              eta_s % 60)}, f)
+
+
+def run_training(args: TrainArgs) -> Optional[str]:
+    """A full training run on ``args.device`` (the card unless "cpu");
+    returns the ``final_checkpoint`` path, or None."""
+    device = resolve_device(args.device)
+    _check_supported(args)
+    np.random.seed(args.seed)
+    if args.total_spec_columns > NUM_TIMESTAMPS - 1:
+        raise ValueError(
+            f"--total_spec_columns {args.total_spec_columns} exceeds the "
+            f"timestamp vocabulary ({NUM_TIMESTAMPS - 1} columns max); the "
+            f"model input geometry is fixed at <= 1000 spectrogram columns")
+    if args.val_ratio == 0.0:
+        args.validate_every = None
+        args.validate_per_epoch = False
+    os.makedirs(args.model_folder, exist_ok=True)
+
+    params, cfg = load_model_any(args.initial_model_path,
+                                 args.total_spec_columns, args.dropout)
+    cfg.remat = args.remat
+    if args.max_length > cfg.max_target_positions:
+        print(f"Warning: max_length {args.max_length} exceeds the model's "
+              f"max_target_positions {cfg.max_target_positions}; clamping.")
+        args.max_length = cfg.max_target_positions
+
+    # validation runs on the live float32 training weights (set below)
+    segmenter = Segmenter(params, cfg, inference_dtype=None, device=device)
+    if args.clear_cluster_codebook:
+        segmenter.update_cluster_codebook({})
+
+    # ----------------------------------------------------------------- data
+    audio_paths, label_paths = get_audio_and_label_paths(args.train_dataset_folder)
+    default_config = resolve_default_config(
+        audio_paths, label_paths, args.total_spec_columns,
+        ignore_cluster=args.ignore_cluster)
+    # the stored defaults also record the decode budget the model trains at
+    stored_config = dict(default_config)
+    stored_config["max_length"] = int(args.max_length)
+    cfg.default_segmentation_config = stored_config
+    segmenter.default_segmentation_config = dict(stored_config)
+
+    cluster_codebook = get_cluster_codebook(
+        label_paths, segmenter.cluster_codebook, ignore_cluster=args.ignore_cluster)
+    segmenter.update_cluster_codebook(cluster_codebook)
+
+    if args.frame_head:
+        cfg.frame_head = True
+        cfg.frame_head_clusters = (max(cluster_codebook.values()) + 1
+                                   if cluster_codebook else 0)
+        params = ensure_frame_head(
+            params, cfg, torch.Generator().manual_seed(args.seed ^ 0x5E6))
+        print(f"Frame head enabled ({cfg.frame_head_clusters} cluster "
+              f"channel(s)).")
+    params = training_params(params, device, args.freeze_encoder)
+
+    audio_list, label_list = load_data(
+        audio_paths, label_paths, cluster_codebook=cluster_codebook, n_threads=20,
+        default_config=default_config, ignore_cluster=args.ignore_cluster)
+    audio_list_val, label_list_val = [], []
+    if args.val_ratio > 0:
+        (audio_list, label_list), (audio_list_val, label_list_val) = \
+            train_val_split(audio_list, label_list, args.val_ratio)
+        n_val_segments = int(sum(len(l.get("onset", [])) for l in label_list_val))
+        if len(audio_list_val) < 3 or n_val_segments < 50:
+            print(f"Warning: validation split is tiny ({len(audio_list_val)} "
+                  f"file(s), {n_val_segments} segment(s)). Validation F1 will "
+                  f"be noisy; early stopping and best-checkpoint selection may "
+                  f"pick a worse model than the last step. Consider a larger "
+                  f"--val_ratio, more data, or val_ratio=0 with a fixed "
+                  f"iteration budget.")
+    audio_list, label_list = slice_audios_and_labels(audio_list, label_list,
+                                                     args.total_spec_columns)
+
+    extra_token_ids = {p: VOCAB_SIZE + i
+                       for i, p in enumerate(cfg.extra_tokens)} or None
+    dataset = VocalSegDataset(audio_list, label_list, args.max_length,
+                              args.total_spec_columns,
+                              extra_token_ids=extra_token_ids,
+                              cluster_encodings=cfg.cluster_encodings or None,
+                              frame_targets=args.frame_head,
+                              frame_sigma=args.frame_label_sigma, device=device)
+    loader = DataLoader(dataset, args.batch_size, shuffle=True, drop_last=True,
+                        num_workers=args.num_workers)
+    if len(loader) == 0:
+        loader = DataLoader(dataset, args.batch_size, shuffle=True,
+                            drop_last=False, num_workers=args.num_workers)
+    if len(loader) == 0:
+        raise RuntimeError("Too few examples (less than a batch) for training!")
+
+    # ------------------------------------------------- schedule reconciliation
+    if args.max_num_iterations is not None and args.max_num_iterations > 0:
+        args.max_num_epochs = int(np.ceil(args.max_num_iterations / len(loader)))
+    else:
+        assert args.max_num_epochs and args.max_num_epochs > 0
+        args.max_num_iterations = len(loader) * args.max_num_epochs
+        if args.min_num_iterations is not None:
+            args.max_num_iterations = max(args.max_num_iterations,
+                                          args.min_num_iterations)
+            args.max_num_epochs = int(np.ceil(args.max_num_iterations / len(loader)))
+
+    optimizer, scheduler, schedule = make_optimizer(
+        params, args.learning_rate, args.weight_decay, args.warmup_steps,
+        args.max_num_iterations, args.lr_schedule, args.freeze_encoder,
+        optimizer=args.optimizer)
+    train_step = build_train_step(
+        cfg, optimizer, scheduler,
+        timestamp_loss_weight=args.timestamp_loss_weight,
+        timestamp_label_sigma=args.timestamp_label_sigma,
+        use_spec_augment=args.spec_augment,
+        frame_head_weight=args.frame_head_weight if args.frame_head else 0.0,
+        frame_boundary_weight=args.frame_boundary_weight)
+
+    metrics_path = os.path.join(args.model_folder, "metrics.jsonl")
+
+    def log_metrics(d):
+        with open(metrics_path, "a") as f:
+            f.write(json.dumps(d) + "\n")
+
+    # ----------------------------------------------------------------- the loop
+    gen = torch.Generator().manual_seed(args.seed)
+    current_step = 0
+    loss_window: List[torch.Tensor] = []
+    val_score_history: List = []
+    best_step: Optional[int] = None  # exempt from max_to_keep pruning
+    early_stop = False
+    progress = 0
+    start_time = time.time()
+    timer = StepTimer()
+    segmenter.params = params  # validation on the live weights
+
+    for epoch in range(args.max_num_epochs + 1):
+        for count, batch in enumerate(loader):
+            # the loss stays on the device until print_every: no per-step sync
+            loss_window.append(train_step(params, batch_to_device(batch, device),
+                                          gen))
+            timer.tick()
+            current_step += 1
+
+            frac = current_step / args.max_num_iterations
+            current_progress = int(np.round(frac * 100))
+            if current_progress > progress:
+                _write_status(args.model_folder, current_progress,
+                              int((time.time() - start_time) / frac * (1 - frac)))
+            progress = current_progress
+
+            if current_step % args.print_every == 0:
+                lr_now = float(schedule(current_step))
+                mean_loss = float(np.mean(torch.stack(loss_window).cpu().numpy()))
+                print(f"Epoch: {epoch}, current_step: {current_step}, "
+                      f"learning rate: {lr_now:.8f}, Loss: {mean_loss:.4f}")
+                log_metrics({"current_step": current_step, "epoch": epoch,
+                             "train/loss": mean_loss, "train/learning_rate": lr_now,
+                             **{f"perf/{k}": v for k, v in timer.summary().items()}})
+                loss_window = []
+
+            run_validation = (
+                (args.validate_every is not None
+                 and current_step % args.validate_every == 0)
+                or (args.validate_per_epoch and count == len(loader) - 1))
+            if run_validation and len(audio_list_val) > 0:
+                eval_res = evaluate(audio_list_val, label_list_val, segmenter,
+                                    args.batch_size, args.max_length,
+                                    num_trials=1, num_beams=1, verbose=False)
+                seg_f1 = eval_res["segment_wise"][-1]
+                frame_f1 = eval_res["frame_wise"][-1]
+                score = (seg_f1 + frame_f1) * 0.5
+                print(f"Epoch: {epoch}, current_step: {current_step}, "
+                      f"validation segment F1: {seg_f1:.4f}, frame F1: {frame_f1:.4f}")
+                log_metrics({"current_step": current_step,
+                             "validate/score": score,
+                             "validate/segment_score": seg_f1,
+                             "validate/frame_score": frame_f1})
+                is_new_best = (not val_score_history
+                               or score > max(s for _, s in val_score_history))
+                val_score_history.append((current_step, score))
+                if is_new_best:
+                    # finalize_best_checkpoint picks among saved checkpoints
+                    best_step = current_step
+                    save_training_checkpoint(args.model_folder, params, cfg,
+                                             current_step, args.max_to_keep,
+                                             keep_step=best_step)
+
+            if ((args.save_every is not None
+                 and current_step % args.save_every == 0)
+                    or (args.save_per_epoch and count == len(loader) - 1)):
+                save_training_checkpoint(args.model_folder, params, cfg,
+                                         current_step, args.max_to_keep,
+                                         keep_step=best_step)
+
+            if (current_step >= 0.5 * args.max_num_iterations
+                    and len(val_score_history) >= 3
+                    and val_score_history[-1][1] < val_score_history[-2][1]
+                    < val_score_history[-3][1]):
+                early_stop = True
+
+            if current_step >= args.max_num_iterations or early_stop:
+                if not os.path.exists(os.path.join(
+                        args.model_folder, f"checkpoint-{current_step}")):
+                    save_training_checkpoint(args.model_folder, params, cfg,
+                                             current_step, args.max_to_keep,
+                                             keep_step=best_step)
+                break
+        if current_step >= args.max_num_iterations or early_stop:
+            break
+
+    _write_status(args.model_folder, 100, 0)
+    if val_score_history:
+        best_step = sorted(val_score_history, key=lambda x: -x[1])[0][0]
+    final = finalize_best_checkpoint(args.model_folder, best_step)
+    try:
+        os.remove(os.path.join(args.model_folder, "status.json"))
+    except OSError:
+        pass
+    if final:
+        print(f"Final checkpoint: {final}")
+    print("All Done!")
+    return final
