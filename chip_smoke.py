@@ -14,7 +14,7 @@ then runs, in order:
      kernel's time, the plain version's, one library call's as a yardstick
      where there is one, and the least time the card could take for the same
      work; the encoder attention's two backward kernels (dK/dV, dQ) against
-     the plain backward at six shapes, bit-identical on a second run, with
+     the plain backward at seven shapes, bit-identical on a second run, with
      a finite-difference spot check;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
@@ -240,13 +240,15 @@ def check_attention(device) -> dict:
     return row
 
 
-ATTENTION_BWD_CASES = [  # name, B, H, Hkv, hd, dtype; Sp 512, valid 500
-    ("base bf16", BATCH, 8, 8, HD, torch.bfloat16),
-    ("base f32", BATCH, 8, 8, HD, torch.float32),
-    ("tiny bf16", BATCH, 6, 6, HD, torch.bfloat16),
-    ("GQA 8/2 bf16", BATCH, 8, 2, HD, torch.bfloat16),
-    ("hd128 bf16", BATCH, 4, 4, 128, torch.bfloat16),
-    ("B 1 bf16", 1, 8, 8, HD, torch.bfloat16),
+ATTENTION_BWD_CASES = [  # name, B, H, Hkv, hd, dtype, valid keys; Sp 512
+    ("base bf16", BATCH, 8, 8, HD, torch.bfloat16, VALID),
+    ("base f32", BATCH, 8, 8, HD, torch.float32, VALID),
+    ("tiny bf16", BATCH, 6, 6, HD, torch.bfloat16, VALID),
+    ("GQA 8/2 bf16", BATCH, 8, 2, HD, torch.bfloat16, VALID),
+    ("hd128 bf16", BATCH, 4, 4, 128, torch.bfloat16, VALID),
+    ("B 1 bf16", 1, 8, 8, HD, torch.bfloat16, VALID),
+    # a short clip: key tiles 5-7 wholly masked, tile 4 cut at an odd key
+    ("301 valid bf16", 2, 8, 2, 128, torch.bfloat16, 301),
 ]
 
 
@@ -298,36 +300,36 @@ def check_attention_backward(device) -> list:
     from whisperseg_torch.ops import attention as att
 
     gen = torch.Generator(device="cpu").manual_seed(3)
-    keep = (torch.arange(SP, device=device) < VALID)[None, None, None, :]
     rows = []
-    for name, b, h, hkv, hd, dtype in ATTENTION_BWD_CASES:
+    for name, b, h, hkv, hd, dtype, valid in ATTENTION_BWD_CASES:
+        keep = (torch.arange(SP, device=device) < valid)[None, None, None, :]
         def rand(*shape):
             x = torch.randn(*shape, generator=gen) * 0.5
             return x.to(device=device, dtype=dtype)
         q, kt, v = rand(b, h, SP, hd), rand(b, hkv, hd, SP), rand(b, hkv, SP, hd)
-        kt[..., VALID:] = 3e4  # poisoned padded keys
-        v[:, :, VALID:] = -3e4
-        o, lse = att.fused_attention_head_major(VALID, q, kt, v, with_lse=True)
+        kt[..., valid:] = 3e4  # poisoned padded keys
+        v[:, :, valid:] = -3e4
+        o, lse = att.fused_attention_head_major(valid, q, kt, v, with_lse=True)
         do = rand(b, h, SP, hd)
-        do[:, :, VALID:] = 0
+        do[:, :, valid:] = 0
         delta = att._delta(o, do)
-        dkt, dv = att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta)
-        dq = att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta)
-        again = (*att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta),
-                 att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta))
-        want = att._backward_plain(VALID, q, kt, v, do, lse, delta)
+        dkt, dv = att.attention_hm_bwd_dkv(valid, q, kt, v, do, lse, delta)
+        dq = att.attention_hm_bwd_dq(valid, q, kt, v, do, lse, delta)
+        again = (*att.attention_hm_bwd_dkv(valid, q, kt, v, do, lse, delta),
+                 att.attention_hm_bwd_dq(valid, q, kt, v, do, lse, delta))
+        want = att._backward_plain(valid, q, kt, v, do, lse, delta)
         abs_errs = [(got.float() - ref.float()).abs().max().item()
                     for got, ref in zip((dq, dkt, dv), want)]
         errs = [e / ref.float().abs().max().item()
                 for e, ref in zip(abs_errs, want)]
-        padded = max(dkt[..., VALID:].abs().max().item(),
-                     dv[:, :, VALID:].abs().max().item())
+        padded = max(dkt[..., valid:].abs().max().item(),
+                     dv[:, :, valid:].abs().max().item())
         same = all(torch.equal(x, y) for x, y in zip((dkt, dv, dq), again))
         tol = 1e-4 if dtype == torch.float32 else 1e-2
-        dkv_ms = cuda_ms(lambda: att.attention_hm_bwd_dkv(VALID, q, kt, v, do, lse, delta), 30)
-        dq_ms = cuda_ms(lambda: att.attention_hm_bwd_dq(VALID, q, kt, v, do, lse, delta), 30)
-        whole_ms = cuda_ms(lambda: att.attention_hm_backward(VALID, q, kt, v, o, do, lse), 30)
-        plain_ms = cuda_ms(lambda: att._backward_plain(VALID, q, kt, v, do, lse, delta), 10)
+        dkv_ms = cuda_ms(lambda: att.attention_hm_bwd_dkv(valid, q, kt, v, do, lse, delta), 30)
+        dq_ms = cuda_ms(lambda: att.attention_hm_bwd_dq(valid, q, kt, v, do, lse, delta), 30)
+        whole_ms = cuda_ms(lambda: att.attention_hm_backward(valid, q, kt, v, o, do, lse), 30)
+        plain_ms = cuda_ms(lambda: att._backward_plain(valid, q, kt, v, do, lse, delta), 10)
         qs, ks, vs = (t.detach().clone().requires_grad_()
                       for t in (q, kt.transpose(-1, -2).contiguous(), v))
         out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep,
@@ -335,7 +337,7 @@ def check_attention_backward(device) -> list:
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             out, (qs, ks, vs), do, retain_graph=True), 30)
         item = q.element_size()
-        products = 2 * b * h * SP * VALID * hd
+        products = 2 * b * h * SP * valid * hd
         ins = item * (q.numel() + kt.numel() + v.numel() + do.numel()) + 8 * lse.numel()
         dkv_bound = bound(ins + item * (kt.numel() + v.numel()), 4 * products, dtype)
         dq_bound = bound(ins + item * q.numel(), 3 * products, dtype)
@@ -357,12 +359,18 @@ def check_attention_backward(device) -> list:
                                  f"padded {padded}, identical {same}")
         if name == "base bf16":
             dkv_graph = graph_ms(lambda: att.attention_hm_bwd_dkv(
-                VALID, q, kt, v, do, lse, delta), 20)
+                valid, q, kt, v, do, lse, delta), 20)
             dq_graph = graph_ms(lambda: att.attention_hm_bwd_dq(
-                VALID, q, kt, v, do, lse, delta), 20)
+                valid, q, kt, v, do, lse, delta), 20)
             print(f"    note: replayed from a CUDA graph: dkv {dkv_graph:.4f} ms,"
-                  f" dq {dq_graph:.4f} ms; the sdpa time covers both kernels' "
-                  f"work", flush=True)
+                  f" dq {dq_graph:.4f} ms; share of bound: dkv "
+                  f"{100 * dkv_bound[0] / dkv_graph:.1f} %, dq "
+                  f"{100 * dq_bound[0] / dq_graph:.1f} % (graph; "
+                  f"{100 * dkv_bound[0] / dkv_ms:.1f} %, "
+                  f"{100 * dq_bound[0] / dq_ms:.1f} % launched from Python); "
+                  f"dkv + dq against the sdpa backward, which covers both "
+                  f"kernels' work: {(dkv_ms + dq_ms) / library_ms:.3f}x",
+                  flush=True)
             source = "whisperseg_torch/csrc/attention_bwd.cu"
             flash = "jax/experimental/pallas/ops/tpu/flash_attention.py"
             rows = [

@@ -2,9 +2,10 @@
 against the JAX package's VJP of ``fused_attention_hm`` (Pallas forward in
 interpret mode, einsum backward), against the gradients of JAX's stock
 Pallas flash attention (interpreted) on the valid rows, and against
-``torch.autograd`` through the plain forward. Tolerances are shares of the
-largest gradient: 1e-5 in float32; 2e-2 in bf16, where the JAX VJP keeps
-bf16 scores and rounds its gradients to bf16 while the port sums in
+``torch.autograd`` through the plain forward, and in bf16 against numpy
+with the stock kernel's rounding points. Tolerances are shares of the
+largest gradient: 1e-5 in float32; 2e-2 in bf16 against the JAX VJP, which
+keeps bf16 scores and rounds its gradients to bf16 while the port sums in
 float32."""
 
 import jax
@@ -65,7 +66,11 @@ def test_plain_backward_matches_jax_vjp(case, dtype, monkeypatch):
 
 def test_plain_backward_matches_stock_flash_kernel(monkeypatch):
     """The TPU kernel this backward replaces: bf16, MHA, padding by segment
-    ids, dO zero on padded rows (as the encoder's slice leaves it)."""
+    ids, dO zero on padded rows (as the encoder's slice leaves it). Largest
+    gap 5.5e-3 of max|grad| (dv; one bf16 step at a large entry), held to
+    1e-2 (was 2e-2). Mean gap 2.1e-4 of max|grad| since P and dS are
+    rounded where the stock kernel rounds them, against 3.8e-4 with float32
+    P and dS: held to 3e-4."""
     orig = pl.pallas_call
     monkeypatch.setattr(pl, "pallas_call",
                         lambda *a, **k: orig(*a, **{**k, "interpret": True}))
@@ -88,7 +93,49 @@ def test_plain_backward_matches_stock_flash_kernel(monkeypatch):
     got = _port_grads(valid, q, kt, v, do, torch.bfloat16)
     pairs = [(got[0], dq), (got[1].transpose(0, 1, 3, 2), dk), (got[2], dv)]
     for name, (g, w) in zip(("dq", "dk", "dv"), pairs):
-        assert _share(g[:, :, :valid], w[:, :, :valid]) <= 2e-2, name
+        g, w = g[:, :, :valid], w[:, :, :valid]
+        assert _share(g, w) <= 1e-2, (name, _share(g, w))
+        mean = np.abs(g - w).mean() / np.abs(w).max()
+        assert mean <= 3e-4, (name, mean)
+
+
+def _bf16(x):
+    """float32 -> the nearest bf16 (ties to even), kept as float32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000).view(np.float32)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_rounds_where_the_stock_kernel_does(case):
+    """bf16: the plain backward against float64 numpy that rounds P to bf16
+    before dV = P^T dO and dS * scale to bf16 before dQ and dK, on the same
+    lse and D. They differ only where float32 and float64 sums round to
+    different sides of a bf16 step: at most 23 of 32768 entries and 4.3e-3
+    of max|grad| at these cases (float32 P and dS: 15-43 % of the entries),
+    held to 1 % of the entries and 1e-2."""
+    valid = case[-1]
+    q, kt, v, do = (_bf16(x) for x in _inputs(case, 6))
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, kt, v, do)]
+    o, lse = att.fused_attention_head_major(valid, *t[:3], with_lse=True)
+    delta = att._delta(o, t[3])
+    got = [g.float().numpy() for g in att._backward_plain(valid, *t, lse, delta)]
+
+    b, h, sp, hd = q.shape
+    hkv = v.shape[1]
+    g = h // hkv
+    q5 = q.astype(np.float64).reshape(b, hkv, g, sp, hd)
+    do5 = do.astype(np.float64).reshape(b, hkv, g, sp, hd)
+    s = np.einsum("bkgsf,bkft->bkgst", q5, kt.astype(np.float64)) * hd ** -0.5
+    p = np.exp(s - lse.numpy().reshape(b, hkv, g, sp, 1)) * (np.arange(sp) < valid)
+    dv = np.einsum("bkgst,bkgsf->bktf", _bf16(p), do5)
+    dp = np.einsum("bkgsf,bktf->bkgst", do5, v.astype(np.float64))
+    ds = _bf16(p * (dp - delta.numpy().reshape(b, hkv, g, sp, 1)) * hd ** -0.5)
+    dq = np.einsum("bkgst,bkft->bkgsf", ds, kt).reshape(b, h, sp, hd)
+    dkt = np.einsum("bkgst,bkgsf->bkft", ds, q5)
+    for name, gg, w in zip(("dq", "dkt", "dv"), got, (dq, dkt, dv)):
+        w = _bf16(w)
+        assert _share(gg, w) <= 1e-2, (name, _share(gg, w))
+        assert np.mean(gg != w) <= 1e-2, (name, np.mean(gg != w))
 
 
 @pytest.mark.parametrize("case", CASES + [(1, 2, 2, 128, 128, 128)])

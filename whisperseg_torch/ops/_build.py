@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` inside the package (git-ignored), where the
-hash is that of the source, so an edited source rebuilds and a built one is
-reused. Nothing is compiled when a module is imported: a wrapper calls
-:func:`library` at its first launch, and :func:`build_all` starts one ``nvcc``
-per source, all at once, for a caller that wants every kernel ready (the chip
-smoke run).
+hash is that of the source and of every ``csrc`` header it includes, so an
+edited source or header rebuilds and a built one is reused. Nothing is
+compiled when a module is imported: a wrapper calls :func:`library` at its
+first launch, and :func:`build_all` starts one ``nvcc`` per source, all at
+once, for a caller that wants every kernel ready (the chip smoke run).
 """
 
 from __future__ import annotations
@@ -14,10 +14,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -26,6 +27,8 @@ SOURCES = ("melproject", "attention", "attention_bwd", "qdot",
            "cross_attention_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -42,9 +45,29 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the headers it includes with quotes, directly
+    or through another header, each once, in the order they are met."""
+    order: List[str] = []
+
+    def visit(path: str) -> None:
+        if path in order or not os.path.exists(path):
+            return  # a header nvcc finds elsewhere: not part of the sources
+        order.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            visit(os.path.join(os.path.dirname(path), inc.decode()))
+
+    visit(os.path.join(CSRC, f"{name}.cu"))
+    return order
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -132,24 +132,24 @@ def fused_attention_head_major(valid_len: int, q4: torch.Tensor,
 
 
 def _backward_plain(valid_len: int, q4, kt4, v4, do, lse, delta):
-    """The backward's math in float32 from the residuals -> (dq, dkt, dv) in
-    q's type (see csrc/attention_bwd.cu)."""
+    """The backward's math from the residuals -> (dq, dkt, dv) in q's type
+    (see csrc/attention_bwd.cu). Sums in float32; like the stock flash
+    kernel, P is rounded to q's type before dV = P^T dO, and dS is scaled,
+    then rounded, before dQ = dS k and dK = dS^T q (no-ops in float32)."""
     b, h, sp, hd = q4.shape
     hkv = v4.shape[1]
     g = h // hkv
-    scale = hd ** -0.5
+    dt = q4.dtype
     q5 = q4.float().reshape(b, hkv, g, sp, hd)
     do5 = do.float().reshape(b, hkv, g, sp, hd)
-    kt = kt4.float()
     # masked keys score -1e30, so their P is exactly 0
     p = torch.exp(_reference_scores(valid_len, q4, kt4)
                   - lse.reshape(b, hkv, g, sp, 1))
-    dv = torch.einsum("bkgst,bkgsf->bktf", p, do5)
+    dv = torch.einsum("bkgst,bkgsf->bktf", p.to(dt).float(), do5)
     dp = torch.einsum("bkgsf,bktf->bkgst", do5, v4.float())
-    ds = p * (dp - delta.reshape(b, hkv, g, sp, 1))
-    dq = torch.einsum("bkgst,bkft->bkgsf", ds, kt) * scale
-    dkt = torch.einsum("bkgst,bkgsf->bkft", ds, q5) * scale
-    dt = q4.dtype
+    ds = (p * (dp - delta.reshape(b, hkv, g, sp, 1)) * hd ** -0.5).to(dt).float()
+    dq = torch.einsum("bkgst,bkft->bkgsf", ds, kt4.float())
+    dkt = torch.einsum("bkgst,bkgsf->bkft", ds, q5)
     return dq.reshape(b, h, sp, hd).to(dt), dkt.to(dt), dv.to(dt)
 
 
@@ -163,9 +163,10 @@ def attention_hm_backward_reference(valid_len: int, q4, kt4, v4, o, do, lse):
     """Plain version of the backward: from the forward's inputs, its output
     ``o``, the output gradient ``do`` and the row log-sum-exp ``lse`` ->
     (dq [B, H, Sp, hd], dkt [B, Hkv, hd, Sp], dv [B, Hkv, Sp, hd]) in q's
-    type, all math in float32: S = q k^T scale, P = exp(S - lse) (0 at
-    masked keys), dV = sum_g P^T dO, dP = dO v^T, dS = P (dP - D) with
-    D = rowsum(o dO), dQ = dS k scale, dK = sum_g dS^T q scale."""
+    type, sums in float32: S = q k^T scale, P = exp(S - lse) (0 at masked
+    keys), dV = sum_g P^T dO, dP = dO v^T, dS = P (dP - D) scale with
+    D = rowsum(o dO), dQ = dS k, dK = sum_g dS^T q; P and dS rounded to q's
+    type before their products."""
     return _backward_plain(valid_len, q4, kt4, v4, do, lse, _delta(o, do))
 
 
