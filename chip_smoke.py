@@ -7,15 +7,22 @@ Run it from the root of a checkout. It builds the port's CUDA kernels from
 ``whisperseg_torch/csrc`` (one ``nvcc`` per source, all started together) and
 then runs, in order:
 
-  1. setup: the card's name and power limit, the torch version, the build time;
+  1. setup: the card's name and power limit, the torch version, the build time,
+     the quantized products' registers and spills (``nvcc -Xptxas -v``), and
+     the per-launch floor (one trivial launch replayed from a CUDA graph);
   2. kernels: each kernel against its plain PyTorch version on the card at the
      main path's shapes (the mel kernel also at every n_fft, the quantized
-     products at every projection shape of every model size), with the
+     products at every projection shape of every model size and at ragged
+     shapes, each called twice and required bit-identical), with the
      kernel's time, the plain version's, one library call's as a yardstick
-     where there is one, and the least time the card could take for the same
-     work; the encoder attention's two backward kernels (dK/dV, dQ) against
-     the plain backward at seven shapes, bit-identical on a second run, with
-     a finite-difference spot check;
+     where there is one (and for the encoder attention, SDPA's time replayed
+     from a CUDA graph with a boolean and an additive mask, and the backend
+     that ran), and the least time the card could take for the same work;
+     the quantized products' graph times at the base model's decode shapes
+     and their sum over a decoder step beside its bound; the encoder
+     attention's two backward kernels (dK/dV, dQ) against the plain backward
+     at seven shapes, bit-identical on a second run, with a finite-difference
+     spot check;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
   4. serve: one ``Segmenter`` on the shipped base checkpoint (bfloat16 as
@@ -34,7 +41,8 @@ then runs, in order:
      base checkpoint at full width (bf16 compute, float32 master weights,
      AdamW, the CLI's default frame head) for 30 steps on a synthetic tone
      dataset, 3 of them profiled; every step must launch the attention
-     kernel and each backward kernel once per encoder layer, every batch the
+     kernel (writing the row log-sum-exp) and each backward kernel once per
+     encoder layer, every batch the
      mel kernel once, and the loss must fall; then 5 steps with dropout and
      remat (the attention kernel twice per layer), and the trained
      checkpoint answers one request.
@@ -104,7 +112,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 def graph_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` calls replayed from one CUDA
-    graph: the device's own time, with no host dispatch between launches."""
+    graph: the device's own time, with no host dispatch between launches.
+    One call before the capture sets up what a library allocates at its
+    first call (cuDNN's plans and workspace)."""
+    fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -119,6 +130,64 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_floor_ms() -> float:
+    """Graph time of one trivial launch (an in-place add on one element):
+    what any kernel launch costs the device at least."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.add_(1.0), 100)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+
+
+def sdpa_backend(kernels: list) -> str:
+    """Which backend of scaled_dot_product_attention ran, by its kernels'
+    names."""
+    names = " ".join(kernels).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "memory-efficient"),
+                         ("efficient_attention", "memory-efficient")):
+        if key in names:
+            return f"{backend} ({len(kernels)} kernels)"
+    return f"math ({len(kernels)} kernels: matmuls, softmax, elementwise)"
+
+
+def ptxas_summary(log: str, key: str) -> list:
+    """(kernel, registers, spill stores + loads in bytes, static shared
+    memory in bytes) of each entry function of an ``nvcc -Xptxas -v`` log
+    whose mangled name holds ``key``."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name, spill = entry.group(1), 0
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and name:
+            spill = int(spills.group(1)) + int(spills.group(2))
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used and name and key in name:
+            # <kernel>ILi<bits>E<f | 13__nv_bfloat16>E: kernel<bits, type>
+            short = re.search(rf"({key}[a-z_]*)ILi(\d+)E(f|13__nv_bfloat16)E", name)
+            label = (f"{short.group(1)}<{short.group(2)}, "
+                     f"{'float' if short.group(3) == 'f' else 'bf16'}>"
+                     if short else name)
+            rows.append((label, int(used.group(1)), spill, int(used.group(2) or 0)))
+            name = None
+    return rows
 
 
 # ------------------------------------------------------------------ kernels
@@ -174,15 +243,16 @@ ATTENTION_CASES = [  # name, H, Hkv, hd, dtype; B 4, Sp 512, valid 500
 ]
 
 
-def check_attention(device) -> dict:
+def check_attention(device) -> list:
     """K2 against its plain version (float32: 2e-5 absolute; bf16: 2 % of
-    the largest output) at the encoder's shapes; returns the main path's row
-    (base model, bf16)."""
+    the largest output) at the encoder's shapes; returns the main path's rows
+    (base model, bf16): K2, and K2's launch that also writes the row
+    log-sum-exp (training's, the port of the flash forward)."""
     from whisperseg_torch.ops import attention
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     keep = (torch.arange(SP, device=device) < VALID)[None, None, None, :]
-    row = None
+    rows = []
     for name, h, hkv, hd, dtype in ATTENTION_CASES:
         def rand(*shape):
             x = torch.randn(*shape, generator=gen) * 0.5
@@ -206,19 +276,28 @@ def check_attention(device) -> dict:
             ok, tol = (err <= 0.02 * want.abs().max().item() and lse_err <= 1e-2,
                        "2% of max|out|; lse 1e-2")
         ok = ok and torch.equal(o_lse, full)
+        # the library's yardstick takes K with contiguous rows (on K as K2
+        # takes it, transposed, SDPA falls back to its math path) and the key
+        # mask as an additive float mask, which cuDNN's kernel reads; both
+        # made before the timed call
         k = kt.transpose(-1, -2)
+        k_rows = k.contiguous()
+        additive = torch.zeros(SP, dtype=dtype, device=device)
+        additive[VALID:] = float("-inf")
+        additive = additive[None, None, None, :]
         ms = cuda_ms(lambda: attention.fused_attention_head_major(VALID, q, kt, v), 50)
         plain_ms = cuda_ms(lambda: attention.attention_hm_reference(VALID, q, kt, v), 20)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=keep, enable_gqa=h != hkv), 50)
+            q, k_rows, v, attn_mask=additive, enable_gqa=h != hkv), 50)
         item = q.element_size()
         nbytes = item * (2 * q.numel() + kt.numel() + v.numel())
         flops = 4 * BATCH * h * SP * VALID * hd
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         print(f"  attention {name:12s} [{BATCH}, {h}/{hkv}, {SP}, {hd}]: "
               f"max|err| {err:.2e}, lse {lse_err:.1e} (tol {tol})  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms"
-              f"  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa (K contiguous, "
+              f"additive mask) {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
         if not ok:
             raise AssertionError(f"attention {name}: max|err| {err}, lse "
                                  f"{lse_err}, output with lse identical: "
@@ -227,17 +306,57 @@ def check_attention(device) -> dict:
             def launch(with_lse):
                 return lambda: attention.fused_attention_head_major(
                     VALID, q, kt, v, with_lse=with_lse)
+            lse_ms = cuda_ms(launch(True), 50)
+            lse_plain_ms = cuda_ms(lambda: attention.attention_hm_reference(
+                VALID, q, kt, v, with_lse=True), 20)
             print(f"    note: training's launch, with the row log-sum-exp: "
-                  f"{cuda_ms(launch(True), 50):.4f} ms; replayed from a CUDA "
-                  f"graph: {graph_ms(launch(False), 50):.4f} ms without it, "
-                  f"{graph_ms(launch(True), 50):.4f} ms with it", flush=True)
-            row = {"name": "attention_hm", "route": "cuda",
-                   "source": "whisperseg_torch/csrc/attention.cu",
-                   "replaces": "whisperseg_tpu/ops/attention.py:86",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
-    return row
+                  f"{lse_ms:.4f} ms (plain {lse_plain_ms:.4f} ms); replayed "
+                  f"from a CUDA graph: {graph_ms(launch(False), 50):.4f} ms "
+                  f"without it, {graph_ms(launch(True), 50):.4f} ms with it",
+                  flush=True)
+            # the yardstick on the device's own clock: SDPA with the boolean
+            # key mask and with an additive float mask, on K as K2 takes it
+            # (transposed, so K's rows are strided) and on a contiguous copy,
+            # and the backend whose kernels ran
+            for k_label, k_in in (("k strided", k), ("k contiguous", k_rows)):
+                for label, mask in (("boolean", keep), ("additive float", additive)):
+                    def sdpa(mask=mask, k_in=k_in):
+                        return F.scaled_dot_product_attention(q, k_in, v,
+                                                              attn_mask=mask)
+                    print(f"    sdpa, {k_label}, {label} key mask: "
+                          f"{graph_ms(sdpa, 50):.4f} ms replayed from a CUDA "
+                          f"graph (K2: the line above); backend "
+                          f"{sdpa_backend(device_kernels(sdpa))}", flush=True)
+            # one library call that also returns the row log-sum-exp:
+            # cuDNN's attention forward, as SDPA runs it on contiguous K
+            def cudnn_lse():
+                return torch.ops.aten._scaled_dot_product_cudnn_attention(
+                    q, k_rows, v, additive, True, 0.0, False, False)[:2]
+            lib_o, lib_lse = cudnn_lse()
+            lib_err = max(
+                (lib_o[:, :, :VALID].float() - want).abs().max().item(),
+                (lib_lse.reshape(lse.shape) - want_lse)[:, :, :VALID]
+                .abs().max().item())
+            lse_library_ms = cuda_ms(cudnn_lse, 50)
+            print(f"    note: aten._scaled_dot_product_cudnn_attention with the "
+                  f"log-sum-exp: {lse_library_ms:.4f} ms ({graph_ms(cudnn_lse, 50):.4f}"
+                  f" ms replayed from a CUDA graph); output and log-sum-exp "
+                  f"within {lib_err:.1e} of the plain version's", flush=True)
+            lse_bound = bound(nbytes + 4 * lse.numel(), flops, dtype)
+            rows = [{"name": "attention_hm", "route": "cuda",
+                     "source": "whisperseg_torch/csrc/attention.cu",
+                     "replaces": "whisperseg_tpu/ops/attention.py:86",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms},
+                    {"name": "attention_hm_lse", "route": "cuda",
+                     "source": "whisperseg_torch/csrc/attention.cu",
+                     "replaces": "jax/experimental/pallas/ops/tpu/"
+                                 "flash_attention.py:758",
+                     "max_abs_err": max(err, lse_err), "ms": lse_ms,
+                     "plain_ms": lse_plain_ms, "bound_ms": lse_bound[0],
+                     "bound_by": lse_bound[1], "library_ms": lse_library_ms}]
+    return rows
 
 
 ATTENTION_BWD_CASES = [  # name, B, H, Hkv, hd, dtype, valid keys; Sp 512
@@ -396,12 +515,49 @@ def quant_shapes():
     return shapes + [(512, 640)]
 
 
-def check_qdot(device, bits: int) -> dict:
+QUANT_ROWS = (1, DECODE_ROWS, 48, 512)  # M: one row, a decode step, the prefill
+# (M, K, out) that no model has and the kernels take: K not a multiple of 16,
+# out not a multiple of 16, out below one column tile
+QUANT_RAGGED = [(5, 384, 96), (2, 100, 40), (1, 64, 6), (7, 130, 33)]
+# (K, out, products a decoder layer) of the base model's decoder: q, k, v, o,
+# xq, xo; fc1; fc2
+DECODE_PRODUCTS = [(512, 512, 6), (512, 2048, 1), (2048, 512, 1)]
+DECODER_LAYERS = 6
+
+
+def qdot_library_call(bits: int, x, qt):
+    """(name, call): one PyTorch call computing K3's (K4's) function on the
+    same weights, as a yardstick: ``torch._weight_int8pack_mm`` (int8
+    [out, K], bf16 scales) or ``torch._weight_int4pack_mm`` (unsigned
+    nibbles q + 8 packed by ``_convert_weight_to_int4pack``, bf16 scales with
+    zero points 0). Both take x in bf16 and give bf16; their roundings are
+    their own."""
+    from whisperseg_torch.ops import quant
+
+    xb = x.to(torch.bfloat16)
+    if bits == 8:
+        w = qt.values.t().contiguous()
+        scale = qt.scale[0].to(torch.bfloat16)
+        return "_weight_int8pack_mm", lambda: torch._weight_int8pack_mm(xb, w, scale)
+    k, groups = 2 * qt.packed.shape[0], qt.scale.shape[0]
+    u = (quant._nibbles(qt.packed).to(torch.int32) + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(
+        (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+    zeros = torch.stack([qt.scale, torch.zeros_like(qt.scale)], dim=-1)
+    zeros = zeros.to(torch.bfloat16).contiguous()
+    return "_weight_int4pack_mm", lambda: torch._weight_int4pack_mm(
+        xb, packed, k // groups, zeros)
+
+
+def check_qdot(device, bits: int, floor_ms: float) -> dict:
     """K3 (bits 8) or K4 (bits 4) against its plain version at every
-    projection shape and at M = 1, 16 (a decode step), 48 (the prefill) and
-    512. Kernel and plain version round alike and differ in the order of a
-    float32 sum: held to 1e-3 of the largest output. Returns the main path's
-    row (base model, one decode step: M 16, K 512, out 512)."""
+    projection shape and M = 1, 16 (a decode step), 48 (the prefill) and
+    512, and at the ragged shapes. Kernel and plain version round alike and
+    differ in the order of a float32 sum: held to 1e-3 of the largest
+    output; a second call must give the same bits. Then the graph times of
+    the base model's decode products at M 16 and 48 and their sum over a
+    decoder step, beside its bound and the per-launch floor. Returns the main
+    path's row (base model, one decode step: M 16, K 512, out 512)."""
     from whisperseg_torch.ops import quant
     from whisperseg_torch.ops.dot import dot_f32
 
@@ -414,47 +570,88 @@ def check_qdot(device, bits: int) -> dict:
         kernel, plain = quant.qdot_w4a16_kernel, quant.qdot_w4a16_reference
         replaces = "whisperseg_tpu/ops/quant.py:312"
     gen = torch.Generator(device="cpu").manual_seed(bits)
-    row, worst = None, 0.0
-    for k, out in quant_shapes():
-        w = torch.randn(k, out, generator=gen) * 0.05
-        w = w * torch.exp(torch.randn(out, generator=gen))  # uneven columns
-        qt = quantize(w).to(device)
+    weights = {}
+
+    def weight(k, out):
+        if (k, out) not in weights:
+            w = torch.randn(k, out, generator=gen) * 0.05
+            w = w * torch.exp(torch.randn(out, generator=gen))  # uneven columns
+            weights[(k, out)] = quantize(w).to(device)
+        return weights[(k, out)]
+
+    def nbytes(qt, x, out):
         storage = qt.values if bits == 8 else qt.packed
-        for m in (1, DECODE_ROWS, 48, 512):
-            x = torch.randn(m, k, generator=gen).to(device)
-            got, want = kernel(x, qt), plain(x, qt)
-            err = (got - want).abs().max().item()
-            top = want.abs().max().item()
-            worst = max(worst, err / top)
-            main = (m, k, out) == (DECODE_ROWS, 512, 512)
-            ms = cuda_ms(lambda: kernel(x, qt), 50 if main else 10)
-            plain_ms = cuda_ms(lambda: plain(x, qt), 20 if main else 5)
-            nbytes = (storage.numel() + 4 * qt.scale.numel()
-                      + x.element_size() * x.numel() + 4 * m * out)
-            bound_ms, bound_by = bound(nbytes, 2 * m * k * out, torch.bfloat16)
-            print(f"  {name} M {m:3d} K {k:4d} out {out:4d}: max|err| {err:.2e} "
-                  f"({err / top:.1e} of max|out|, tol 1e-3)  kernel {ms:.4f} ms"
-                  f"  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms "
-                  f"({bound_by})", flush=True)
-            if not err <= 1e-3 * top:
-                raise AssertionError(f"{name} M {m} K {k} out {out}: max|err| "
-                                     f"{err} against max|out| {top}")
-            if main:
-                deq_ms = cuda_ms(lambda: dot_f32(
-                    x, quant.dequantize(qt, torch.bfloat16), torch.bfloat16), 20)
-                print(f"    note: replayed from a CUDA graph, without the "
-                      f"host's dispatch: {graph_ms(lambda: kernel(x, qt), 50):.4f}"
-                      f" ms; dequantize to bf16, then torch.mm: {deq_ms:.4f} ms "
-                      f"(several launches; no yardstick)", flush=True)
-                row = {"name": name, "route": "cuda",
-                       "source": "whisperseg_torch/csrc/qdot.cu",
-                       "replaces": replaces, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by,
-                       # no one PyTorch call dequantizes and multiplies
-                       "library_ms": None}
+        return (storage.numel() + 4 * qt.scale.numel()
+                + x.element_size() * x.numel() + 4 * x.shape[0] * out)
+
+    row, worst = None, 0.0
+    cases = [(m, k, out) for k, out in quant_shapes() for m in QUANT_ROWS]
+    for m, k, out in cases + QUANT_RAGGED:
+        qt = weight(k, out)
+        x = torch.randn(m, k, generator=gen).to(device)
+        got, again, want = kernel(x, qt), kernel(x, qt), plain(x, qt)
+        same = torch.equal(got, again)
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        worst = max(worst, err / top)
+        main = (m, k, out) == (DECODE_ROWS, 512, 512)
+        ms = cuda_ms(lambda: kernel(x, qt), 50 if main else 10)
+        plain_ms = cuda_ms(lambda: plain(x, qt), 20 if main else 5)
+        bound_ms, bound_by = bound(nbytes(qt, x, out), 2 * m * k * out,
+                                   torch.bfloat16)
+        plan = quant.qdot_plan(m, k, out, bits)
+        print(f"  {name} M {m:3d} K {k:4d} out {out:4d}: max|err| {err:.2e} "
+              f"({err / top:.1e} of max|out|, tol 1e-3), second call "
+              f"{'identical' if same else 'DIFFERS'}  kernel {ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})"
+              f"  {plan.blocks} blocks, cluster {plan.cluster}", flush=True)
+        if not (err <= 1e-3 * top and same):
+            raise AssertionError(f"{name} M {m} K {k} out {out}: max|err| "
+                                 f"{err} against max|out| {top}, second call "
+                                 f"identical: {same}")
+        if main:
+            deq_ms = cuda_ms(lambda: dot_f32(
+                x, quant.dequantize(qt, torch.bfloat16), torch.bfloat16), 20)
+            lib_name, library = qdot_library_call(bits, x, qt)
+            lib_err = (library().float() - want).abs().max().item()
+            library_ms = cuda_ms(library, 50)
+            print(f"    note: replayed from a CUDA graph: kernel "
+                  f"{graph_ms(lambda: kernel(x, qt), 50):.4f} ms, "
+                  f"{lib_name} {graph_ms(library, 50):.4f} "
+                  f"ms (launched from Python {library_ms:.4f} ms; bf16 output, "
+                  f"{lib_err / top:.1e} of max|out| from the plain version); "
+                  f"dequantize to bf16, then torch.mm: {deq_ms:.4f} ms "
+                  f"(several launches)", flush=True)
+            row = {"name": name, "route": "cuda",
+                   "source": "whisperseg_torch/csrc/qdot.cu",
+                   "replaces": replaces, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
     print(f"  {name}: largest error over all shapes {worst:.1e} of max|out|",
           flush=True)
+
+    for m in (DECODE_ROWS, 48):
+        step_ms = step_bytes = weight_bytes = 0.0
+        for k, out, count in DECODE_PRODUCTS:
+            qt = weight(k, out)
+            x = torch.randn(m, k, generator=gen).to(device)
+            t = graph_ms(lambda: kernel(x, qt), 50)
+            b = nbytes(qt, x, out)
+            weight_bytes += DECODER_LAYERS * count * (b - 4 * m * (k + out))
+            share = bound(b, 2 * m * k * out, torch.bfloat16)[0] / t
+            print(f"    graph M {m} K {k:4d} out {out:4d}: {t:.4f} ms "
+                  f"({100 * share:.1f} % of its bound; "
+                  f"{quant.qdot_plan(m, k, out, bits).blocks} blocks)", flush=True)
+            step_ms += DECODER_LAYERS * count * t
+            step_bytes += DECODER_LAYERS * count * b
+        launches = DECODER_LAYERS * sum(c for _, _, c in DECODE_PRODUCTS)
+        print(f"    a decoder step's {launches} products at M {m}: {step_ms:.4f} "
+              f"ms replayed from CUDA graphs; bound {step_bytes / 1e6:.2f} MB "
+              f"at 3.35 TB/s = {bound(step_bytes, 0, torch.bfloat16)[0]:.5f} "
+              f"ms (the weights and scales alone {weight_bytes / 1e6:.2f} MB, "
+              f"{bound(weight_bytes, 0, torch.bfloat16)[0]:.5f} ms); {launches} "
+              f"launches at the per-launch floor {launches * floor_ms:.4f} ms",
+              flush=True)
     return row
 
 
@@ -751,7 +948,7 @@ def profile_phase(seg, int8_kv: bool = False) -> None:
 
 
 SERVE_GROUPS = {"melproject": ("melproject",), "attention_hm": ("attention_hm",),
-                "qdot": ("qdot_w",), "cross_attention_int8": ("cross_attention",),
+                "qdot": ("qdot",), "cross_attention_int8": ("cross_attention",),
                 "matmul": ("gemm", "gemv", "nvjet", "cutlass", "sm90"),
                 "fft": ("fft",)}
 
@@ -869,7 +1066,7 @@ class StepProbe:
 
         self.trainer.build_train_step = build
         self.dataset_cls.collate = collate
-        logmel.launches = attention.launches = 0
+        logmel.launches = attention.launches = attention.launches_lse = 0
         attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
         return self
 
@@ -904,7 +1101,8 @@ def train_phase(device) -> dict:
     remat) and each backward kernel once per layer, every batch the mel
     kernel once, no library attention kernel (SDPA, cuDNN) runs in the
     profiled steps, every loss is finite and the last five steps' mean loss
-    is below the first five's. Returns the backward kernels' launches."""
+    is below the first five's. Returns the launches of K2 with the row
+    log-sum-exp (all of a step's K2 launches) and of the backward kernels."""
     import tempfile
 
     from whisperseg_torch.ops import attention, logmel
@@ -920,6 +1118,7 @@ def train_phase(device) -> dict:
         probe = train_run(data, os.path.join(tmp, "model"), TRAIN_STEPS,
                           profiled=TRAIN_PROFILED)
         wall = time.perf_counter() - t0
+        lse_launches = attention.launches_lse
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         k1 = logmel.launches
         timed_ms = np.array([t * 1e3 for i, t in enumerate(probe.times)
@@ -956,14 +1155,17 @@ def train_phase(device) -> dict:
                                           "efficient_attention"))}
         if library:  # the encoder's attention must be the port's kernels
             raise AssertionError(f"library attention kernels ran: {library}")
-        if set(probe.launches) != {(layers, layers, layers)}:
-            raise AssertionError(f"launches per step {probe.launches}")
+        if set(probe.launches) != {(layers, layers, layers)} or \
+                lse_launches != sum(x[0] for x in probe.launches):
+            raise AssertionError(f"launches per step {probe.launches}; K2 "
+                                 f"with the log-sum-exp {lse_launches}")
         if k1 != probe.collates or probe.collates < TRAIN_STEPS:
             raise AssertionError(f"K1 launches {k1} for {probe.collates} batches")
         if not (all(np.isfinite(losses)) and last < first):
             raise AssertionError(f"losses {losses}")
-        bwd_launches = {"attention_hm_bwd_dkv": sum(x[1] for x in probe.launches),
-                        "attention_hm_bwd_dq": sum(x[2] for x in probe.launches)}
+        train_launches = {"attention_hm_lse": lse_launches,
+                          "attention_hm_bwd_dkv": sum(x[1] for x in probe.launches),
+                          "attention_hm_bwd_dq": sum(x[2] for x in probe.launches)}
 
         torch.cuda.reset_peak_memory_stats()
         remat = train_run(data, os.path.join(tmp, "model_remat"), 5,
@@ -993,7 +1195,7 @@ def train_phase(device) -> dict:
         if not table["onset"] or bwd or \
                 attention.launches != layers * logmel.launches:
             raise AssertionError(f"serving the trained checkpoint: {table}")
-    return bwd_launches
+    return train_launches
 
 
 # --------------------------------------------------------------------- main
@@ -1014,13 +1216,20 @@ def main() -> int:
     print(f"[setup] {card}; torch {torch.__version__} (CUDA {torch.version.cuda})",
           flush=True)
     t0 = time.perf_counter()
-    _build.build_all()
+    logs = _build.build_all()
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s into "
           f"{os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
+    for kernel, regs, spill, static in ptxas_summary(logs.get("qdot", ""), "qdot"):
+        print(f"[setup] ptxas {kernel}: {regs} registers, {spill} bytes "
+              f"spilled, {static} bytes static shared memory", flush=True)
+    floor_ms = launch_floor_ms()
+    print(f"[setup] per-launch floor: a one-element in-place add replayed from "
+          f"a CUDA graph takes {floor_ms:.5f} ms (bound "
+          f"{bound(8, 1, torch.float32)[0]:.2e} ms)", flush=True)
 
     print("[kernels] each against its plain version on the card", flush=True)
-    rows = [check_melproject(device), check_attention(device),
-            check_qdot(device, 8), check_qdot(device, 4),
+    rows = [check_melproject(device), *check_attention(device),
+            check_qdot(device, 8, floor_ms), check_qdot(device, 4, floor_ms),
             check_cross_attention(device), *check_attention_backward(device)]
 
     print("[golden] tiny checkpoint, float32, beam 4, 3 trials", flush=True)

@@ -10,296 +10,432 @@
 //   w4a16:  w[k, n] = bf16( bf16(q[k, n]) * bf16(scale[k / gs, n]) ), q a
 //           signed nibble: byte i of column n holds row i in its low nibble
 //           and row i + K/2 in its high nibble; gs = K / groups.
-// The dequantized weight never reaches device memory. The product of two bf16
-// values is exact in float32, so the float32 FMAs below give the sum a bf16
-// matrix unit with float32 accumulation gives, up to its order.
+// The dequantized weight never reaches device memory.
 //
-// Bound on an H100: memory. The callers are the decode step and the prefill
-// (M = 16 to 48 rows), where every weight byte is used by a few rows only:
-// the int8 (or nibble) weight stream, K*N (K*N/2) bytes, outweighs the
-// arithmetic by far. At these sizes (0.26 to 1 MB of weights) the launch
-// itself is of the same order as the stream.
+// Bound on an H100: memory. The callers are the decode step (M = 16 rows)
+// and the prefill (M = 48), where each weight byte serves a few rows only.
+// A launch streams 0.26 to 1 MB of weights (base model), a fraction of a
+// microsecond at 3.35 TB/s, so what sets its time is latency: how many of
+// those bytes are in flight at once, and the launch itself.
 //
-// Design: a block of 8 warps owns 8 rows of x and 128 output columns. A lane
-// owns 4 adjacent columns, so a warp reads 128 contiguous weight bytes per
-// contraction row; the 8 warps split the contraction rows of each staged
-// chunk, each loading 8 rows ahead of their use (with 8 to 80 blocks on 132
-// SMs, loads in flight are what hides the memory's latency), and their
-// partial sums are added in a fixed order through shared
-// memory (no atomics: the result is the same from run to run). x is rounded
-// to bf16 once, while it is staged in shared memory. Every K and N is taken:
-// ragged edges are masked, and the 4-byte weight load falls back to single
-// bytes where N is not a multiple of 4. The w4a16 kernel indexes the scale
-// group per element, because the two nibbles of one byte lie K/2 rows apart
-// and, with K = 384 and groups of 128, in different phases of their groups.
-// More rows than 8 go to further blocks (blockIdx.y), which read the same
-// weights through L2.
+// Design. The piece size, cluster size and rows of x a chunk come from
+// ops/quant.py::qdot_plan and are checked here against this source's limits
+// (plan_ok); the tile width and the shared memory follow from them:
+//   * A block of 4 warps owns a tile of 64 output columns and one piece of
+//     the contraction: k_slice weight rows (w4a16: k_slice byte rows, which
+//     carry contraction rows i and i + K/2, so 2 k_slice rows). The pieces of
+//     one column tile go to the blocks of one thread-block cluster (at most
+//     8, the portable size): the base model's decode products launch 64 to
+//     256 blocks, where a tile of rows x columns launched 8 to 32.
+//   * A block copies its whole piece into shared memory with 16-byte
+//     cp.async copies, all issued before the first is waited on, and stages
+//     its columns of x as bf16 meanwhile; it then dequantizes the piece to
+//     bf16 in shared memory once, with the roundings of the function above.
+//     The w4a16 piece's local rows are its low nibbles, then its high ones;
+//     the scale group is taken per element, since the two nibbles of a byte
+//     lie K/2 rows apart (with K = 384 and groups of 128, in different
+//     phases of their groups).
+//   * It walks x in chunks of m_chunk rows (16 to 64), so each weight byte is
+//     read once per launch whatever M: mma.sync m16n8k16 with x as A
+//     (ldmatrix) and the weights as B (ldmatrix.trans), float32
+//     accumulators; each warp owns 16 columns.
+//   * Each block writes its float32 partial tile into its own shared memory.
+//     After a cluster barrier, block r adds the partial tiles of rows r,
+//     r + cluster, ... in rank order, reading the other blocks' tiles through
+//     distributed shared memory, and writes y. A fixed order of sums, no
+//     atomics and no scratch: the result is the same from run to run. The
+//     partial tiles are double-buffered, so one barrier a chunk suffices.
+//   * Rows of a piece beyond K, columns beyond N and rows beyond M are zero
+//     in shared memory. Where N is not a multiple of 16 or a pointer is not
+//     16-byte aligned, weights arrive by single bytes and x element by element.
+//   * K beyond 8 pieces of the largest size (over 5120 rows): block r takes
+//     pieces r, r + 8, ... and reads them again for each chunk of x.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = 4;                 // output columns per lane
-constexpr int kTileN = 32 * kCols;       // 128 columns per block
-constexpr int kTileM = 8;                // rows of x per block
-constexpr int kChunk = 256;              // contraction rows staged per pass
-constexpr int kBatch = 8;                // weight rows a warp loads ahead
-constexpr int kChunk4 = kChunk / 2;      // w4a16: byte rows, two rows each
-static_assert(kChunk4 % (kWarps * kBatch) == 0, "whole batches per chunk");
+constexpr int kTileN = 64;          // output columns of a block, 16 a warp
+constexpr int kLdW = kTileN + 8;    // bf16 row stride of the weights: 144 B
+constexpr int kLdRed = kTileN + 8;  // float row stride of a partial tile
+constexpr int kMaxCluster = 8;
+constexpr int kMaxRows = 640;       // contraction rows of one piece
+constexpr int kMaxChunk = 64;       // rows of x a block multiplies at a time
+constexpr int kMaxSmem = 232448;    // a block's shared memory on the H100
+
+struct Params {
+  const void* x;
+  const int8_t* w;     // int8 [rows, n]: values (w8a16) or packed (w4a16)
+  const float* scale;  // [n] (w8a16) or [groups, n] (w4a16)
+  float* y;
+  int m, k, n;
+  int rows;    // storage rows of w: k (w8a16), k / 2 (w4a16)
+  int gs;      // w4a16: contraction rows per scale group
+  int ks;      // storage rows of one piece
+  int pieces;  // ceil(rows / ks)
+  int mc;      // rows of x per chunk
+  bool x_vec, w_vec, y_vec;
+};
+
+// Dynamic shared memory in bytes for kr contraction rows (ks storage rows)
+// a piece and mc rows of x a chunk:
+//   wb  bf16 [kr][kLdW]           the dequantized piece
+//   xs  bf16 [mc][kr + 8]         x, rounded to bf16
+//   wq  int8 [ks][kTileN]         the piece as stored
+//   red float [2][mc][kLdRed]     partial tiles, double-buffered
+// Row strides of 16 bytes past a multiple of 32 keep ldmatrix free of bank
+// conflicts and every region 16-byte aligned. ops/quant.py::_smem_bytes
+// computes the same to choose mc within kMaxSmem.
+constexpr int smem_bytes(int kr, int ks, int mc) {
+  return kr * kLdW * 2 + mc * (kr + 8) * 2 + ks * kTileN + 2 * mc * kLdRed * 4;
+}
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float load_x(const float* x, long long i) {
-  return bf16_round(x[i]);
-}
-__device__ __forceinline__ float load_x(const __nv_bfloat16* x, long long i) {
-  return __bfloat162float(x[i]);
-}
-
-// Stage rows [m0, m0 + kTileM) x columns [c0, min(c0 + CHUNK, c_end)) of
-// x [m, ld] into xs[CHUNK][kTileM], rounded to bf16, zero beyond the edges.
-template <int CHUNK, typename XT>
-__device__ __forceinline__ void stage_x(const XT* __restrict__ x,
-                                        float (*xs)[kTileM], int m0, int c0,
-                                        int c_end, int m, int ld) {
-  for (int i = threadIdx.x; i < CHUNK * kTileM; i += kThreads) {
-    const int kl = i % CHUNK;
-    const int ml = i / CHUNK;
-    float v = 0.f;
-    if (c0 + kl < c_end && m0 + ml < m)
-      v = load_x(x, (long long)(m0 + ml) * ld + c0 + kl);
-    xs[kl][ml] = v;
-  }
-}
-
-// Four weight bytes of one contraction row, columns n0 .. n0 + 3.
-__device__ __forceinline__ void load_bytes(const int8_t* __restrict__ row,
-                                           int n0, int n, bool vec,
-                                           int (&q)[kCols]) {
-  if (vec) {
-    const char4 p = *reinterpret_cast<const char4*>(row + n0);
-    q[0] = p.x; q[1] = p.y; q[2] = p.z; q[3] = p.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) q[c] = (n0 + c < n) ? row[n0 + c] : 0;
-  }
-}
-
 __device__ __forceinline__ void load_scales(const float* __restrict__ row,
-                                            int n0, int n, float (&s)[kCols]) {
+                                            int n0, int n, float (&s)[4]) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c)
-    s[c] = (n0 + c < n) ? bf16_round(row[n0 + c]) : 0.f;
+  for (int e = 0; e < 4; ++e) s[e] = (n0 + e < n) ? bf16_round(row[n0 + e]) : 0.f;
 }
 
-__device__ __forceinline__ void accumulate(float (&acc)[kTileM][kCols],
-                                           const float (*xs)[kTileM], int kl,
-                                           const float (&w)[kCols]) {
-  const float4 a = *reinterpret_cast<const float4*>(&xs[kl][0]);
-  const float4 b = *reinterpret_cast<const float4*>(&xs[kl][4]);
-  const float xv[kTileM] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int mi = 0; mi < kTileM; ++mi)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[mi][c] = fmaf(xv[mi], w[c], acc[mi][c]);
-}
-
-// Add the warps' partial sums in warp order and write the block's tile of y.
-__device__ __forceinline__ void reduce_and_store(
-    float (&acc)[kTileM][kCols], float (*red)[kTileM][kTileN],
-    float* __restrict__ y, int m0, int nb, int m, int n) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int mi = 0; mi < kTileM; ++mi)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) red[warp][mi][lane * kCols + c] = acc[mi][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTileM * kTileN; i += kThreads) {
-    const int mi = i / kTileN;
-    const int nl = i % kTileN;
-    if (m0 + mi >= m || nb + nl >= n) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w][mi][nl];
-    y[(long long)(m0 + mi) * n + nb + nl] = sum;
+// Starts the copy of piece `piece` (tile columns [n0, n0 + kTileN)) into wq.
+// The aligned path leaves its copies in flight (one cp.async group); the
+// ragged one copies byte by byte.
+__device__ __forceinline__ void load_piece(const Params& p, int8_t* wq,
+                                           int piece, int n0) {
+  const int r0 = piece * p.ks;
+  const int nrows = min(p.ks, p.rows - r0);
+  if (p.w_vec) {
+    for (int i = threadIdx.x; i < nrows * (kTileN / 16); i += kThreads) {
+      const int r = i / (kTileN / 16), col = (i % (kTileN / 16)) * 16;
+      if (n0 + col < p.n)  // n % 16 == 0: the 16 bytes are all in range
+        tiles::cp_async_16(wq + r * kTileN + col,
+                           p.w + (long long)(r0 + r) * p.n + n0 + col);
+    }
+    tiles::cp_async_commit();
+  } else {
+    for (int i = threadIdx.x; i < nrows * kTileN; i += kThreads) {
+      const int r = i / kTileN, col = i % kTileN;
+      if (n0 + col < p.n) wq[i] = p.w[(long long)(r0 + r) * p.n + n0 + col];
+    }
   }
 }
 
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-qdot_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, float* __restrict__ y, int m,
-                  int k, int n) {
-  __shared__ __align__(16) float xs[kChunk][kTileM];
-  __shared__ float red[kWarps][kTileM][kTileN];
+// Four elements of x from `row`, columns col .. col + 3 of which the first
+// `valid` exist (zero past them), as loaded: four float32 or four bf16.
+__device__ __forceinline__ float4 x_load(const float* row, int col, int valid,
+                                         bool vec) {
+  if (vec && valid == 4) return *reinterpret_cast<const float4*>(row + col);
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = e < valid ? row[col + e] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ uint2 x_load(const bf16* row, int col, int valid,
+                                        bool vec) {
+  if (vec && valid == 4) return *reinterpret_cast<const uint2*>(row + col);
+  const uint16_t* bits = reinterpret_cast<const uint16_t*>(row + col);
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = e < valid ? bits[e] : 0u;
+  return make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+}
+// ... and as four bf16 (rounded to nearest even).
+__device__ __forceinline__ uint2 to_bf16(float4 f) {
+  return make_uint2(tiles::pack_bf16(f.x, f.y), tiles::pack_bf16(f.z, f.w));
+}
+__device__ __forceinline__ uint2 to_bf16(uint2 h) { return h; }
 
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int nb = blockIdx.x * kTileN;
-  const int n0 = nb + lane * kCols;
-  const int m0 = blockIdx.y * kTileM;
-  const bool vec = (n % kCols == 0) && n0 < n;
+// x rows [m0, m0 + mc) at the contraction rows of piece `piece` into
+// xs [mc][kr + 8] as bf16, zero beyond M and K. w4a16: local columns
+// [0, ks) are rows piece * ks + i, columns [ks, 2 ks) rows K/2 + piece * ks + i.
+// A thread starts kBatch loads before it stores any, so that their latencies
+// overlap (and overlap the weight copies in flight).
+template <int BITS, typename XT>
+__device__ __forceinline__ void stage_x(const Params& p, bf16* xs, int m0,
+                                        int piece) {
+  constexpr int kPer = BITS == 8 ? 1 : 2;
+  constexpr int kBatch = 8;
+  const XT* x = static_cast<const XT*>(p.x);
+  const int kr = kPer * p.ks, ldx = kr + 8, quads = kr / 4;
+  const int r0 = piece * p.ks, total = p.mc * quads;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kThreads * kBatch) {
+    decltype(x_load(x, 0, 0, false)) raw[kBatch];
+    int dst[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      dst[u] = -1;
+      if (i < total) {
+        const int row = i / quads, kk = (i % quads) * 4;
+        const bool high = BITS == 4 && kk >= p.ks;  // ks % 8 == 0: no quad straddles
+        const int srow = r0 + (high ? kk - p.ks : kk);
+        const int col = high ? p.rows + srow : srow;
+        const int valid = m0 + row < p.m ? max(0, min(4, p.rows - srow)) : 0;
+        raw[u] = x_load(x + (long long)min(m0 + row, p.m - 1) * p.k, col, valid,
+                        p.x_vec);
+        dst[u] = row * ldx + kk;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (dst[u] >= 0) *reinterpret_cast<uint2*>(xs + dst[u]) = to_bf16(raw[u]);
+  }
+}
 
-  float sc[kCols];
-  load_scales(scale, n0, n, sc);
-  float acc[kTileM][kCols];
+// wq (piece `piece` as stored) -> wb (bf16 [kr][kLdW]); rows beyond the
+// weight's and columns beyond n are zero. A thread owns 4 columns.
+template <int BITS>
+__device__ __forceinline__ void dequantize(const Params& p, const int8_t* wq,
+                                           bf16* wb, int piece, int n0) {
+  const int c4 = (threadIdx.x % (kTileN / 4)) * 4;
+  const int r0 = piece * p.ks;
+  // the bf16 scales of this thread's columns: w8a16 one set; w4a16 those of
+  // the groups of its current low and high rows, which hold for storage
+  // rows [*_begin, *_end) (no division on the way through a group)
+  float s_lo[4] = {0.f, 0.f, 0.f, 0.f}, s_hi[4] = {0.f, 0.f, 0.f, 0.f};
+  int lo_begin = 0, lo_end = 0, hi_begin = 0, hi_end = 0;
+  if (BITS == 8) load_scales(p.scale, n0 + c4, p.n, s_lo);
+#pragma unroll 4
+  for (int r = threadIdx.x / (kTileN / 4); r < p.ks; r += kThreads / (kTileN / 4)) {
+    const int srow = r0 + r;
+    const bool ok = srow < p.rows;
+    const uint32_t word = ok ? *reinterpret_cast<const uint32_t*>(wq + r * kTileN + c4) : 0u;
+    if (BITS == 8) {
+      float v[4];
 #pragma unroll
-  for (int mi = 0; mi < kTileM; ++mi)
+      for (int e = 0; e < 4; ++e)  // q * s is exact in float32: one rounding
+        v[e] = (float)(int8_t)(word >> (8 * e)) * s_lo[e];
+      *reinterpret_cast<uint2*>(wb + r * kLdW + c4) =
+          make_uint2(tiles::pack_bf16(v[0], v[1]), tiles::pack_bf16(v[2], v[3]));
+    } else {
+      if (ok && (srow < lo_begin || srow >= lo_end)) {
+        const int g = srow / p.gs;
+        load_scales(p.scale + (long long)g * p.n, n0 + c4, p.n, s_lo);
+        lo_begin = g * p.gs;
+        lo_end = lo_begin + p.gs;
+      }
+      if (ok && (srow < hi_begin || srow >= hi_end)) {  // row rows + srow
+        const int g = (p.rows + srow) / p.gs;
+        load_scales(p.scale + (long long)g * p.n, n0 + c4, p.n, s_hi);
+        hi_begin = g * p.gs - p.rows;
+        hi_end = hi_begin + p.gs;
+      }
+      float lo[4], hi[4];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[mi][c] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int b = (int8_t)(word >> (8 * e));
+        const int lo_u = b & 15;
+        lo[e] = (float)(lo_u - (lo_u > 7 ? 16 : 0)) * s_lo[e];  // sign-extended
+        hi[e] = (float)(b >> 4) * s_hi[e];  // arithmetic shift: floor(b / 16)
+      }
+      *reinterpret_cast<uint2*>(wb + r * kLdW + c4) =
+          make_uint2(tiles::pack_bf16(lo[0], lo[1]), tiles::pack_bf16(lo[2], lo[3]));
+      *reinterpret_cast<uint2*>(wb + (p.ks + r) * kLdW + c4) =
+          make_uint2(tiles::pack_bf16(hi[0], hi[1]), tiles::pack_bf16(hi[2], hi[3]));
+    }
+  }
+}
 
-  for (int k0 = 0; k0 < k; k0 += kChunk) {
-    stage_x<kChunk>(x, xs, m0, k0, k, m, k);
-    __syncthreads();
-    const int kend = min(kChunk, k - k0);
-    if (n0 < n) {
-      for (int kb = warp; kb < kend; kb += kWarps * kBatch) {
-        // all loads of a batch are started before the first is used; rows
-        // past the edge count as zero weights (x is staged as zero there)
-        int q[kBatch][kCols];
+template <int BITS, typename XT>
+__global__ void __launch_bounds__(kThreads) qdot_kernel(const Params p) {
+  constexpr int kPer = BITS == 8 ? 1 : 2;
+  constexpr int kTiles = kMaxChunk / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kr = kPer * p.ks, ldx = kr + 8;
+  bf16* wb = reinterpret_cast<bf16*>(smem);
+  bf16* xs = wb + kr * kLdW;
+  int8_t* wq = reinterpret_cast<int8_t*>(xs + p.mc * ldx);
+  float* red = reinterpret_cast<float*>(wq + p.ks * kTileN);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int csize = (int)cluster.num_blocks();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gr = lane / 4, tg = lane % 4;
+  const int n0 = blockIdx.x * kTileN;
+  const int mine = (p.pieces - rank + csize - 1) / csize;  // pieces of this block
+
+  for (int c = 0, m0 = 0; m0 < p.m; ++c, m0 += p.mc) {
+    const int rows_here = min(p.mc, p.m - m0);
+    const int mtiles = (rows_here + 15) / 16;
+    float acc[kTiles][2][4] = {};
+    for (int j = 0; j < mine; ++j) {
+      const int piece = rank + j * csize;
+      const bool load_w = mine > 1 || c == 0;
+      __syncthreads();  // the previous chunk's or piece's readers are done
+      if (load_w) load_piece(p, wq, piece, n0);
+      stage_x<BITS, XT>(p, xs, m0, piece);  // while the copies are in flight
+      if (load_w) {
+        tiles::cp_async_wait<0>();
+        __syncthreads();
+        dequantize<BITS>(p, wq, wb, piece, n0);
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kr; kk += 16) {
+        uint32_t b[4];  // this warp's 16 columns: b0, b1 of two n8 tiles
+        tiles::ldsm_b_trans(b, wb, kLdW, kk, warp * 16, lane);
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int kl = kb + u * kWarps;
-          if (kl < kend) {
-            load_bytes(w + (long long)(k0 + kl) * n, n0, n, vec, q[u]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) q[u][c] = 0;
+        for (int t = 0; t < kTiles; ++t) {
+          if (t < mtiles) {
+            uint32_t a[4];
+            tiles::ldsm_a(a, xs, ldx, t * 16, kk, lane);
+            tiles::mma_bf16(acc[t][0], a, b[0], b[1]);
+            tiles::mma_bf16(acc[t][1], a, b[2], b[3]);
           }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          float wv[kCols];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            wv[c] = bf16_round((float)q[u][c] * sc[c]);
-          accumulate(acc, xs, kb + u * kWarps, wv);
         }
       }
     }
-    __syncthreads();
-  }
-  reduce_and_store(acc, red, y, m0, nb, m, n);
-}
 
-template <typename XT>
-__global__ void __launch_bounds__(kThreads)
-qdot_w4a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ packed,
-                  const float* __restrict__ scale, float* __restrict__ y, int m,
-                  int k, int n, int gs) {
-  __shared__ __align__(16) float xs_lo[kChunk4][kTileM];
-  __shared__ __align__(16) float xs_hi[kChunk4][kTileM];
-  __shared__ float red[kWarps][kTileM][kTileN];
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int nb = blockIdx.x * kTileN;
-  const int n0 = nb + lane * kCols;
-  const int m0 = blockIdx.y * kTileM;
-  const bool vec = (n % kCols == 0) && n0 < n;
-  const int half = k / 2;
-
-  float acc[kTileM][kCols];
+    float* part = red + (c % 2) * p.mc * kLdRed;
 #pragma unroll
-  for (int mi = 0; mi < kTileM; ++mi)
+    for (int t = 0; t < kTiles; ++t) {
+      if (t < mtiles) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[mi][c] = 0.f;
-
-  float s_lo[kCols], s_hi[kCols];
-  int g_lo = -1, g_hi = -1;  // groups whose scales s_lo / s_hi hold
-
-  // byte row i carries contraction rows i (low nibble) and i + half (high)
-  for (int i0 = 0; i0 < half; i0 += kChunk4) {
-    stage_x<kChunk4>(x, xs_lo, m0, i0, half, m, k);
-    stage_x<kChunk4>(x, xs_hi, m0, half + i0, k, m, k);
-    __syncthreads();
-    const int kend = min(kChunk4, half - i0);
-    if (n0 < n) {
-      for (int kb = warp; kb < kend; kb += kWarps * kBatch) {
-        int p[kBatch][kCols];  // loaded ahead, zero past the edge (see w8a16)
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int kl = kb + u * kWarps;
-          if (kl < kend) {
-            load_bytes(packed + (long long)(i0 + kl) * n, n0, n, vec, p[u]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) p[u][c] = 0;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          const int kl = kb + u * kWarps;
-          const int i = min(i0 + kl, half - 1);  // a row whose group exists
-          if (i / gs != g_lo) {
-            g_lo = i / gs;
-            load_scales(scale + (long long)g_lo * n, n0, n, s_lo);
-          }
-          if ((i + half) / gs != g_hi) {
-            g_hi = (i + half) / gs;
-            load_scales(scale + (long long)g_hi * n, n0, n, s_hi);
-          }
-          float w_lo[kCols], w_hi[kCols];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int lo_u = p[u][c] & 15;
-            const int lo = lo_u - (lo_u > 7 ? 16 : 0);  // sign-extend the nibble
-            const int hi = p[u][c] >> 4;                // arithmetic: floor(p / 16)
-            w_lo[c] = bf16_round((float)lo * s_lo[c]);
-            w_hi[c] = bf16_round((float)hi * s_hi[c]);
-          }
-          accumulate(acc, xs_lo, kl, w_lo);
-          accumulate(acc, xs_hi, kl, w_hi);
+        for (int h = 0; h < 2; ++h) {
+          float* at = part + (t * 16 + gr) * kLdRed + warp * 16 + h * 8 + 2 * tg;
+          *reinterpret_cast<float2*>(at) = make_float2(acc[t][h][0], acc[t][h][1]);
+          *reinterpret_cast<float2*>(at + 8 * kLdRed) =
+              make_float2(acc[t][h][2], acc[t][h][3]);
         }
       }
     }
-    __syncthreads();
+    cluster.sync();  // every block's partial tile of this chunk is written
+
+    // block `rank` sums rows rank, rank + csize, ... over the blocks in rank order
+    const int my_rows = (rows_here - rank + csize - 1) / csize;
+    for (int i = threadIdx.x; i < my_rows * (kTileN / 4); i += kThreads) {
+      const int row = rank + (i / (kTileN / 4)) * csize;
+      const int col = (i % (kTileN / 4)) * 4;
+      if (n0 + col >= p.n) continue;
+      float* src = part + row * kLdRed + col;
+      float4 v[kMaxCluster];  // all loads in flight before the first add
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        if (q < csize)
+          v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, q));
+      float4 s = v[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q) {
+        if (q < csize) {
+          s.x += v[q].x; s.y += v[q].y; s.z += v[q].z; s.w += v[q].w;
+        }
+      }
+      float* out = p.y + (long long)(m0 + row) * p.n + n0 + col;
+      if (p.y_vec) {
+        *reinterpret_cast<float4*>(out) = s;
+      } else {
+        const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + col + e < p.n) out[e] = sv[e];
+      }
+    }
   }
-  reduce_and_store(acc, red, y, m0, nb, m, n);
+  cluster.sync();  // no block leaves while another still reads its tiles
 }
 
-inline dim3 grid_for(int m, int n) {
-  return dim3((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
+inline bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// The plan from ops/quant.py::qdot_plan, checked against this source's
+// limits: a refused plan is an error, never a different kernel.
+template <int BITS>
+bool plan_ok(const Params& p, int cluster, int smem) {
+  constexpr int kPer = BITS == 8 ? 1 : 2;
+  constexpr int kUnit = 16 / kPer;  // a piece is whole k16 steps
+  if (p.ks <= 0 || p.ks % kUnit || kPer * p.ks > kMaxRows) return false;
+  if (p.mc < 16 || p.mc > kMaxChunk || p.mc % 16) return false;
+  if (cluster < 1 || cluster > min(kMaxCluster, p.pieces)) return false;
+  return smem <= kMaxSmem;
+}
+
+template <int BITS, typename XT>
+int launch(const Params& p, int cluster, int smem, cudaStream_t stream) {
+  auto kernel = qdot_kernel<BITS, XT>;
+  cudaError_t err = cudaSuccess;
+  // above 48 KB only by the attribute, set on every such launch: it belongs
+  // to the current device context
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.n + kTileN - 1) / kTileN, cluster, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int run(Params p, int x_is_bf16, int k_slice, int cluster, int m_chunk,
+        cudaStream_t stream) {
+  constexpr int kPer = BITS == 8 ? 1 : 2;
+  p.ks = k_slice;
+  p.pieces = k_slice > 0 ? (p.rows + k_slice - 1) / k_slice : 0;
+  p.mc = m_chunk;
+  const int smem = smem_bytes(kPer * p.ks, p.ks, p.mc);
+  // 16-byte paths: K % 8 == 0 keeps every quad of x (w4a16: both halves)
+  // aligned, N % 16 == 0 every 16 weight bytes of a row
+  p.x_vec = p.k % 8 == 0 && aligned16(p.x);
+  p.w_vec = p.n % 16 == 0 && aligned16(p.w);
+  p.y_vec = p.n % 4 == 0 && aligned16(p.y);
+  if (!plan_ok<BITS>(p, cluster, smem)) return (int)cudaErrorInvalidValue;
+  return x_is_bf16 ? launch<BITS, bf16>(p, cluster, smem, stream)
+                   : launch<BITS, float>(p, cluster, smem, stream);
 }
 
 }  // namespace
 
 // x: [m, k] contiguous, float32 or (x_is_bf16) bfloat16. w: int8 [k, n]
-// contiguous. scale: float32 [n]. y: float32 [m, n] contiguous. Returns the
-// cudaGetLastError() code of the launch.
+// contiguous. scale: float32 [n]. y: float32 [m, n] contiguous. The last
+// three ints are the plan of ops/quant.py::qdot_plan. Returns the CUDA error
+// code of the launch (cudaErrorInvalidValue for a refused shape or plan).
 extern "C" int ws_qdot_w8a16(const void* x, int x_is_bf16, const int8_t* w,
                              const float* scale, float* y, int m, int k, int n,
+                             int k_slice, int cluster, int m_chunk,
                              cudaStream_t stream) {
   if (m <= 0 || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  if (x_is_bf16)
-    qdot_w8a16_kernel<<<grid_for(m, n), kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), w, scale, y, m, k, n);
-  else
-    qdot_w8a16_kernel<<<grid_for(m, n), kThreads, 0, stream>>>(
-        static_cast<const float*>(x), w, scale, y, m, k, n);
-  return (int)cudaGetLastError();
+  Params p = {};
+  p.x = x; p.w = w; p.scale = scale; p.y = y;
+  p.m = m; p.k = k; p.n = n; p.rows = k; p.gs = k;
+  return run<8>(p, x_is_bf16, k_slice, cluster, m_chunk, stream);
 }
 
 // As above with packed: int8 [k / 2, n] (two nibbles a byte) and scale:
 // float32 [groups, n]; k even and a multiple of groups.
 extern "C" int ws_qdot_w4a16(const void* x, int x_is_bf16, const int8_t* packed,
                              const float* scale, float* y, int m, int k, int n,
-                             int groups, cudaStream_t stream) {
+                             int groups, int k_slice, int cluster, int m_chunk,
+                             cudaStream_t stream) {
   if (m <= 0 || k <= 0 || n <= 0 || groups <= 0 || k % 2 || k % groups)
     return (int)cudaErrorInvalidValue;
-  const int gs = k / groups;
-  if (x_is_bf16)
-    qdot_w4a16_kernel<<<grid_for(m, n), kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), packed, scale, y, m, k, n, gs);
-  else
-    qdot_w4a16_kernel<<<grid_for(m, n), kThreads, 0, stream>>>(
-        static_cast<const float*>(x), packed, scale, y, m, k, n, gs);
-  return (int)cudaGetLastError();
+  Params p = {};
+  p.x = x; p.w = packed; p.scale = scale; p.y = y;
+  p.m = m; p.k = k; p.n = n; p.rows = k / 2; p.gs = k / groups;
+  return run<4>(p, x_is_bf16, k_slice, cluster, m_chunk, stream);
 }

@@ -6,7 +6,9 @@ hash is that of the source and of every ``csrc`` header it includes, so an
 edited source or header rebuilds and a built one is reused. Nothing is
 compiled when a module is imported: a wrapper calls :func:`library` at its
 first launch, and :func:`build_all` starts one ``nvcc`` per source, all at
-once, for a caller that wants every kernel ready (the chip smoke run).
+once, for a caller that wants every kernel ready (the chip smoke run), and
+returns each build's compiler output (``-Xptxas -v``: every kernel's
+registers, spills and static shared memory).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 SOURCES = ("melproject", "attention", "attention_bwd", "qdot",
            "cross_attention_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
@@ -79,21 +81,22 @@ def _start(name: str) -> subprocess.Popen:
                             text=True)
 
 
-def _finish(name: str, proc: subprocess.Popen) -> None:
+def _finish(name: str, proc: subprocess.Popen) -> str:
     out, _ = proc.communicate()
     tmp = proc.args[proc.args.index("-o") + 1]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, _target(name))  # atomic: a concurrent build never sees half
+    return out
 
 
-def build_all(names: Sequence[str] = SOURCES) -> None:
-    """Compile every source not built yet, one ``nvcc`` each, in parallel."""
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source not built yet, one ``nvcc`` each, in parallel;
+    returns the compiler output of each source built."""
     todo = [n for n in names if not os.path.exists(_target(n))]
     procs = [(n, _start(n)) for n in todo]
-    for n, p in procs:
-        _finish(n, p)
+    return {n: _finish(n, p) for n, p in procs}
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -26,8 +26,11 @@ import torch
 from . import _build
 
 # Kernel launches made by the wrappers below (read and reset by callers that
-# check which path ran): the forward, the dK/dV and the dQ kernel.
+# check which path ran): the forward, those of its launches that also write
+# the row log-sum-exp (training's, the port of the flash forward), the dK/dV
+# and the dQ kernel.
 launches = 0
+launches_lse = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
 
@@ -109,7 +112,7 @@ def fused_attention_head_major(valid_len: int, q4: torch.Tensor,
     type; rows at or beyond valid_len are computed but meaningless. With
     ``with_lse`` returns (o, lse), lse the float32 [B, H, Sp] row
     log-sum-exp; the same single launch writes both."""
-    global launches
+    global launches, launches_lse
     _check(valid_len, q4, kt4, v4)
     if q4.device.type == "cpu":
         return attention_hm_reference(valid_len, q4, kt4, v4, with_lse)
@@ -125,6 +128,7 @@ def fused_attention_head_major(valid_len: int, q4: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
     launches += 1
+    launches_lse += with_lse
     return (o, lse) if with_lse else o
 
 

@@ -14,7 +14,8 @@ float32. Routing of ``qdot`` / ``qdot4``:
 
   * a tensor on the CPU: the plain version;
   * a CUDA tensor with at most ``MAX_KERNEL_ROWS`` rows (the decode step and
-    the prefill): the CUDA kernel, or an error;
+    the prefill): the CUDA kernel, launched with the geometry of
+    :func:`qdot_plan`, or an error;
   * a CUDA tensor with more rows (encoder layers, cross K/V of a whole
     batch): the weight is dequantized to bf16 with the same rounding and the
     product is one large plain matmul, as the JAX package leaves it to XLA.
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -210,14 +211,95 @@ def qdot_w4a16_reference(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ w.float()
 
 
+# Launch geometry of the kernels (csrc/qdot.cu checks a plan against the same
+# limits and refuses one outside them).
+TILE_N = 64               # output columns of a block
+MAX_CLUSTER = 8           # blocks of a thread-block cluster: the portable size
+MAX_PIECE_ROWS = 640      # contraction rows of one block's piece of K
+MAX_CHUNK_ROWS = 64       # rows of x a block multiplies at a time
+MAX_SMEM_BYTES = 232448   # shared memory a block may have on the H100
+
+
+class QdotPlan(NamedTuple):
+    """Geometry of one w8a16 / w4a16 launch. The grid is ``n_tiles`` x
+    ``cluster`` blocks; the blocks of a cluster share one tile of ``TILE_N``
+    output columns and split the contraction: piece ``p`` is weight storage
+    rows ``[p * k_slice, (p + 1) * k_slice)`` (w4a16: byte rows, each holding
+    contraction rows ``i`` and ``i + K/2``), and block ``r`` of a cluster
+    takes pieces ``r, r + cluster, ...``. Each block multiplies ``m_chunk``
+    rows of x at a time and adds its partial tile to its cluster's in rank
+    order. ``smem_bytes`` is the dynamic shared memory a block takes."""
+    k_slice: int
+    cluster: int
+    m_chunk: int
+    smem_bytes: int
+    n_tiles: int
+    pieces: int
+
+    # the fields the C entry points take, in their order
+    LAUNCH_FIELDS = ("k_slice", "cluster", "m_chunk")
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.cluster
+
+    def launch_args(self) -> tuple:
+        return tuple(getattr(self, f) for f in self.LAUNCH_FIELDS)
+
+
+def _smem_bytes(rows: int, k_slice: int, m_chunk: int) -> int:
+    """Dynamic shared memory of a block (the layout of csrc/qdot.cu): the
+    bf16 piece and x chunk with rows padded by 16 bytes, the piece as
+    stored, and two float32 partial tiles; ``rows`` contraction rows a piece."""
+    ld = TILE_N + 8
+    return (2 * rows * ld + 2 * m_chunk * (rows + 8) + k_slice * TILE_N
+            + 2 * 4 * m_chunk * ld)
+
+
+@functools.lru_cache(maxsize=None)
+def qdot_plan(m: int, k: int, n: int, bits: int) -> QdotPlan:
+    """The launch geometry of the w8a16 (``bits`` 8) or w4a16 (4) kernel for
+    x [m, k] and a weight [k, n]. K is cut into at most 8 pieces of whole
+    k16 steps, one a block of the cluster, as long as a piece stays within
+    ``MAX_PIECE_ROWS`` (up to K = 5120); x is walked in chunks of up to 64
+    rows, fewer where shared memory would not hold them."""
+    if bits == 8:
+        rows, per = k, 1
+    elif bits == 4:
+        if k % 2:
+            raise ValueError("w4a16 needs an even contraction dim")
+        rows, per = k // 2, 2
+    else:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if min(m, k, n) <= 0:
+        raise ValueError(f"qdot_plan: empty product {(m, k, n)}")
+    unit = 16 // per  # storage rows of one k16 step
+    k_slice = min(unit * -(-rows // (MAX_CLUSTER * unit)), MAX_PIECE_ROWS // per)
+    pieces = -(-rows // k_slice)
+    m_chunk = min(MAX_CHUNK_ROWS, 16 * -(-m // 16))
+    while m_chunk > 16 and _smem_bytes(per * k_slice, k_slice,
+                                       m_chunk) > MAX_SMEM_BYTES:
+        m_chunk -= 16
+    return QdotPlan(k_slice, min(MAX_CLUSTER, pieces), m_chunk,
+                    _smem_bytes(per * k_slice, k_slice, m_chunk),
+                    -(-n // TILE_N), pieces)
+
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PLAN_ARGTYPES = [_I32] * len(QdotPlan.LAUNCH_FIELDS)
+# x, x_is_bf16, weight, scale, y, m, k, n, [groups,] the plan, stream
+W8A16_ARGTYPES = [_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32,
+                  *_PLAN_ARGTYPES, _PTR]
+W4A16_ARGTYPES = [_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32,
+                  *_PLAN_ARGTYPES, _PTR]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = _build.library("qdot")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     w8, w4 = lib.ws_qdot_w8a16, lib.ws_qdot_w4a16
-    w8.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr]
-    w4.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
-    w8.restype = w4.restype = i32
+    w8.argtypes, w4.argtypes = W8A16_ARGTYPES, W4A16_ARGTYPES
+    w8.restype = w4.restype = _I32
     return w8, w4
 
 
@@ -255,10 +337,11 @@ def qdot_w8a16_kernel(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
         raise ValueError(f"qdot kernel: unsupported device {x2.device}")
     if tuple(qt.scale.shape) != (1, out):
         raise ValueError(f"qdot: scale {tuple(qt.scale.shape)} is not [1, {out}]")
-    y = torch.empty((x2.shape[0], out), dtype=torch.float32, device=x2.device)
+    m = x2.shape[0]
+    y = torch.empty((m, out), dtype=torch.float32, device=x2.device)
     err = _kernels()[0](x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                         qt.values.data_ptr(), qt.scale.data_ptr(), y.data_ptr(),
-                        x2.shape[0], k, out,
+                        m, k, out, *qdot_plan(m, k, out, 8).launch_args(),
                         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w8a16 kernel launch failed: CUDA error {err}")
@@ -280,10 +363,11 @@ def qdot_w4a16_kernel(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
     if qt.scale.dim() != 2 or qt.scale.shape[1] != out or k % groups:
         raise ValueError(f"qdot4: scale {tuple(qt.scale.shape)} does not "
                          f"group a [{k}, {out}] weight")
-    y = torch.empty((x2.shape[0], out), dtype=torch.float32, device=x2.device)
+    m = x2.shape[0]
+    y = torch.empty((m, out), dtype=torch.float32, device=x2.device)
     err = _kernels()[1](x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                         qt.packed.data_ptr(), qt.scale.data_ptr(), y.data_ptr(),
-                        x2.shape[0], k, out, groups,
+                        m, k, out, groups, *qdot_plan(m, k, out, 4).launch_args(),
                         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w4a16 kernel launch failed: CUDA error {err}")
