@@ -43,3 +43,9 @@ def test_target_changes_with_every_included_file(csrc, edited, rebuilds):
 def test_attention_backward_hashes_its_tile_header():
     names = [os.path.basename(p) for p in _build._sources("attention_bwd")]
     assert names == ["attention_bwd.cu", "mma_tiles.cuh"]
+
+
+@pytest.mark.parametrize("name", ["attention", "qdot"])
+def test_tensor_core_sources_hash_their_tile_header(name):
+    names = [os.path.basename(p) for p in _build._sources(name)]
+    assert names == [f"{name}.cu", "mma_tiles.cuh"]

@@ -53,26 +53,34 @@ def test_plan_partitions_the_product(bits, kn, rows):
         assert all(len(rows_) for rows_ in pieces)
         assert np.array_equal(np.sort(np.concatenate(pieces)), np.arange(k))
         # the cluster's blocks take pieces r, r + cluster, ...: each piece
-        # one block, each block at least one piece, and up to K = 5120 just
-        # one, so that every weight byte is read once per launch
+        # one block, each block at least one piece; up to 64 rows of x and
+        # K = 5120 just one, so that every weight byte is read once per
+        # launch; above 64 rows pieces of 64 contraction rows
         assert 1 <= plan.cluster <= tq.MAX_CLUSTER
         owner = [p % plan.cluster for p in range(plan.pieces)]
         assert sorted(set(owner)) == list(range(plan.cluster))
-        if k <= 5120:
+        if k <= 5120 and m <= tq.MAX_CHUNK_ROWS:
             assert plan.pieces == plan.cluster
+        if m > tq.MAX_CHUNK_ROWS:
+            assert plan.k_slice * (1 if bits == 8 else 2) == min(
+                tq.LARGE_M_PIECE_ROWS, 16 * -(-k // 16))
         # N: column tiles, none empty, covering [0, n)
         assert tq.TILE_N == 64
         assert (plan.n_tiles - 1) * tq.TILE_N < n <= plan.n_tiles * tq.TILE_N
-        assert plan.blocks == plan.n_tiles * plan.cluster
-        # M: chunks of whole m16 tiles, at most 64 rows, no wider than needed
+        assert plan.blocks == plan.n_tiles * plan.cluster * plan.chunks
+        # M: chunks of whole m16 tiles, at most 64 rows, no wider than
+        # needed, one cluster each, none empty, covering [0, m)
         assert plan.m_chunk % 16 == 0 and 16 <= plan.m_chunk <= tq.MAX_CHUNK_ROWS
         assert plan.m_chunk <= 16 * -(-m // 16)
+        assert (plan.chunks - 1) * plan.m_chunk < m <= plan.chunks * plan.m_chunk
         # shared memory: within the H100's 227 KB a block, and room for the
-        # bf16 piece, the bf16 x chunk, the piece as stored and two float32
-        # partial tiles
+        # bf16 piece, the bf16 x chunk and the piece as stored (two of each
+        # where a block walks several pieces) and the float32 partial tile
         kr = plan.k_slice * (1 if bits == 8 else 2)
-        least = (2 * kr * tq.TILE_N + 2 * plan.m_chunk * kr
-                 + plan.k_slice * tq.TILE_N + 2 * 4 * plan.m_chunk * tq.TILE_N)
+        buffers = 2 if plan.pieces > plan.cluster else 1
+        least = (2 * kr * tq.TILE_N + buffers * (2 * plan.m_chunk * kr
+                                                 + plan.k_slice * tq.TILE_N)
+                 + 4 * plan.m_chunk * tq.TILE_N)
         assert least <= plan.smem_bytes <= tq.MAX_SMEM_BYTES == 232448
 
 

@@ -12,44 +12,53 @@
 //           and row i + K/2 in its high nibble; gs = K / groups.
 // The dequantized weight never reaches device memory.
 //
-// Bound on an H100: memory. The callers are the decode step (M = 16 rows)
-// and the prefill (M = 48), where each weight byte serves a few rows only.
-// A launch streams 0.26 to 1 MB of weights (base model), a fraction of a
-// microsecond at 3.35 TB/s, so what sets its time is latency: how many of
-// those bytes are in flight at once, and the launch itself.
+// Bound on an H100: memory at the callers that matter most, the decode step
+// (M = 16 rows) and the prefill (M = 48), where each weight byte serves a
+// few rows only. A launch streams 0.26 to 1 MB of weights (base model), a
+// fraction of a microsecond at 3.35 TB/s, so what sets its time is latency:
+// how many of those bytes are in flight at once, and the launch itself. At
+// M 512 (a one-window batch's encoder) the products' operations come first.
 //
 // Design. The piece size, cluster size and rows of x a chunk come from
 // ops/quant.py::qdot_plan and are checked here against this source's limits
-// (plan_ok); the tile width and the shared memory follow from them:
-//   * A block of 4 warps owns a tile of 64 output columns and one piece of
-//     the contraction: k_slice weight rows (w4a16: k_slice byte rows, which
-//     carry contraction rows i and i + K/2, so 2 k_slice rows). The pieces of
-//     one column tile go to the blocks of one thread-block cluster (at most
-//     8, the portable size): the base model's decode products launch 64 to
-//     256 blocks, where a tile of rows x columns launched 8 to 32.
-//   * A block copies its whole piece into shared memory with 16-byte
-//     cp.async copies, all issued before the first is waited on, and stages
-//     its columns of x as bf16 meanwhile; it then dequantizes the piece to
-//     bf16 in shared memory once, with the roundings of the function above.
-//     The w4a16 piece's local rows are its low nibbles, then its high ones;
-//     the scale group is taken per element, since the two nibbles of a byte
-//     lie K/2 rows apart (with K = 384 and groups of 128, in different
-//     phases of their groups).
-//   * It walks x in chunks of m_chunk rows (16 to 64), so each weight byte is
-//     read once per launch whatever M: mma.sync m16n8k16 with x as A
-//     (ldmatrix) and the weights as B (ldmatrix.trans), float32
-//     accumulators; each warp owns 16 columns.
+// (plan_ok); the tile width, the grid and the shared memory follow from
+// them:
+//   * A block of 4 warps owns a tile of 64 output columns, one chunk of
+//     m_chunk rows of x (16 to 64; the grid's third dimension walks the
+//     chunks) and pieces of the contraction: k_slice weight rows (w4a16:
+//     k_slice byte rows, which carry contraction rows i and i + K/2, so
+//     2 k_slice rows). The pieces of one (column tile, chunk) go to the
+//     blocks of one thread-block cluster (at most 8, the portable size),
+//     block r taking pieces r, r + cluster, ... At the decode shapes the
+//     plan cuts K into one piece a block (the base model's decode products
+//     launch 64 to 256 blocks, where a tile of rows x columns launched 8 to
+//     32); at more rows it cuts K into pieces of 64 contraction rows and
+//     picks the smallest cluster that gives the card at least 384 blocks
+//     (about 3 an SM), so that a block walks several pieces and the chunks
+//     fill the card.
+//   * A block copies a piece into shared memory with 16-byte cp.async
+//     copies, all issued before the first is waited on, and stages its
+//     columns of x as bf16 meanwhile; it then dequantizes the piece to bf16
+//     in shared memory, with the roundings of the function above, and
+//     multiplies: mma.sync m16n8k16 with x as A (ldmatrix) and the weights
+//     as B (ldmatrix.trans), float32 accumulators; each warp owns 16
+//     columns. The w4a16 piece's local rows are its low nibbles, then its
+//     high ones; the scale group is taken per element, since the two
+//     nibbles of a byte lie K/2 rows apart (with K = 384 and groups of 128,
+//     in different phases of their groups).
+//   * A block with several pieces double-buffers them: the next piece's
+//     weights, and where x is bf16 with 16-byte aligned rows its columns of
+//     x, arrive by cp.async while this one multiplies (the wrapper rounds a
+//     float32 x of more than 64 rows to bf16 first, since every column tile
+//     reads all of it); a float32 x is loaded and rounded piece by piece.
 //   * Each block writes its float32 partial tile into its own shared memory.
 //     After a cluster barrier, block r adds the partial tiles of rows r,
 //     r + cluster, ... in rank order, reading the other blocks' tiles through
 //     distributed shared memory, and writes y. A fixed order of sums, no
-//     atomics and no scratch: the result is the same from run to run. The
-//     partial tiles are double-buffered, so one barrier a chunk suffices.
+//     atomics and no scratch: the result is the same from run to run.
 //   * Rows of a piece beyond K, columns beyond N and rows beyond M are zero
 //     in shared memory. Where N is not a multiple of 16 or a pointer is not
 //     16-byte aligned, weights arrive by single bytes and x element by element.
-//   * K beyond 8 pieces of the largest size (over 5120 rows): block r takes
-//     pieces r, r + 8, ... and reads them again for each chunk of x.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -85,20 +94,23 @@ struct Params {
   int ks;      // storage rows of one piece
   int pieces;  // ceil(rows / ks)
   int mc;      // rows of x per chunk
-  bool x_vec, w_vec, y_vec;
+  int nb;      // buffers of x and of the stored piece: 2 where a block has
+               // more than one piece, else 1
+  bool x_vec, x_async, w_vec, y_vec;
 };
 
 // Dynamic shared memory in bytes for kr contraction rows (ks storage rows)
-// a piece and mc rows of x a chunk:
-//   wb  bf16 [kr][kLdW]           the dequantized piece
-//   xs  bf16 [mc][kr + 8]         x, rounded to bf16
-//   wq  int8 [ks][kTileN]         the piece as stored
-//   red float [2][mc][kLdRed]     partial tiles, double-buffered
+// a piece, mc rows of x a chunk and nb buffers (2 for a block with more
+// than one piece, else 1):
+//   wb   bf16 [kr][kLdW]           the dequantized piece
+//   xs   bf16 [nb][mc][kr + 8]     x, rounded to bf16
+//   wq   int8 [nb][ks][kTileN]     the piece as stored
+//   part float [mc][kLdRed]        the block's partial tile
 // Row strides of 16 bytes past a multiple of 32 keep ldmatrix free of bank
 // conflicts and every region 16-byte aligned. ops/quant.py::_smem_bytes
 // computes the same to choose mc within kMaxSmem.
-constexpr int smem_bytes(int kr, int ks, int mc) {
-  return kr * kLdW * 2 + mc * (kr + 8) * 2 + ks * kTileN + 2 * mc * kLdRed * 4;
+constexpr int smem_bytes(int kr, int ks, int mc, int nb) {
+  return kr * kLdW * 2 + nb * (mc * (kr + 8) * 2 + ks * kTileN) + mc * kLdRed * 4;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -112,8 +124,8 @@ __device__ __forceinline__ void load_scales(const float* __restrict__ row,
 }
 
 // Starts the copy of piece `piece` (tile columns [n0, n0 + kTileN)) into wq.
-// The aligned path leaves its copies in flight (one cp.async group); the
-// ragged one copies byte by byte.
+// The aligned path leaves its copies in flight (the caller commits them);
+// the ragged one copies byte by byte.
 __device__ __forceinline__ void load_piece(const Params& p, int8_t* wq,
                                            int piece, int n0) {
   const int r0 = piece * p.ks;
@@ -125,7 +137,6 @@ __device__ __forceinline__ void load_piece(const Params& p, int8_t* wq,
         tiles::cp_async_16(wq + r * kTileN + col,
                            p.w + (long long)(r0 + r) * p.n + n0 + col);
     }
-    tiles::cp_async_commit();
   } else {
     for (int i = threadIdx.x; i < nrows * kTileN; i += kThreads) {
       const int r = i / kTileN, col = i % kTileN;
@@ -160,34 +171,44 @@ __device__ __forceinline__ uint2 to_bf16(float4 f) {
 __device__ __forceinline__ uint2 to_bf16(uint2 h) { return h; }
 
 // x rows [m0, m0 + mc) at the contraction rows of piece `piece` into
-// xs [mc][kr + 8] as bf16, zero beyond M and K. w4a16: local columns
-// [0, ks) are rows piece * ks + i, columns [ks, 2 ks) rows K/2 + piece * ks + i.
-// A thread starts kBatch loads before it stores any, so that their latencies
-// overlap (and overlap the weight copies in flight).
+// xs [mc][kr + 8] as bf16, zero beyond M and K.
+// w4a16: local columns [0, ks) are rows piece * ks + i, columns [ks, 2 ks)
+// rows K/2 + piece * ks + i. A thread starts kBatch loads before it stores
+// any, so that their latencies overlap (and overlap the copies in flight).
 template <int BITS, typename XT>
 __device__ __forceinline__ void stage_x(const Params& p, bf16* xs, int m0,
                                         int piece) {
   constexpr int kPer = BITS == 8 ? 1 : 2;
   constexpr int kBatch = 8;
-  const XT* x = static_cast<const XT*>(p.x);
+  const XT* x = static_cast<const XT*>(p.x) + (long long)m0 * p.k;
+  const int rows = p.m - m0;  // rows of x from m0 on
   const int kr = kPer * p.ks, ldx = kr + 8, quads = kr / 4;
-  const int r0 = piece * p.ks, total = p.mc * quads;
-  for (int i0 = threadIdx.x; i0 < total; i0 += kThreads * kBatch) {
+  const int r0 = piece * p.ks;
+  // quad i = threadIdx.x + n * kThreads is (row, q) = (i / quads, i % quads),
+  // stepped without a division
+  const int step_row = kThreads / quads, step_q = kThreads % quads;
+  int row = threadIdx.x / quads, q = threadIdx.x % quads;
+  while (row < p.mc) {
     decltype(x_load(x, 0, 0, false)) raw[kBatch];
     int dst[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kThreads;
       dst[u] = -1;
-      if (i < total) {
-        const int row = i / quads, kk = (i % quads) * 4;
+      if (row < p.mc) {
+        const int kk = q * 4;
         const bool high = BITS == 4 && kk >= p.ks;  // ks % 8 == 0: no quad straddles
         const int srow = r0 + (high ? kk - p.ks : kk);
         const int col = high ? p.rows + srow : srow;
-        const int valid = m0 + row < p.m ? max(0, min(4, p.rows - srow)) : 0;
-        raw[u] = x_load(x + (long long)min(m0 + row, p.m - 1) * p.k, col, valid,
+        const int valid = row < rows ? max(0, min(4, p.rows - srow)) : 0;
+        raw[u] = x_load(x + (long long)min(row, rows - 1) * p.k, col, valid,
                         p.x_vec);
         dst[u] = row * ldx + kk;
+        row += step_row;
+        q += step_q;
+        if (q >= quads) {
+          q -= quads;
+          ++row;
+        }
       }
     }
 #pragma unroll
@@ -196,19 +217,44 @@ __device__ __forceinline__ void stage_x(const Params& p, bf16* xs, int m0,
   }
 }
 
+// The same for a bf16 x whose rows are 16-byte aligned (x_async): starts
+// cp.async copies of 8 elements (the caller commits them); zeros beyond M
+// and K are stored directly.
+template <int BITS>
+__device__ __forceinline__ void copy_x(const Params& p, bf16* xs, int m0,
+                                       int piece) {
+  constexpr int kPer = BITS == 8 ? 1 : 2;
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const int kr = kPer * p.ks, ldx = kr + 8, octs = kr / 8;
+  const int r0 = piece * p.ks;
+  for (int i = threadIdx.x; i < p.mc * octs; i += kThreads) {
+    const int row = i / octs, kk = (i % octs) * 8;
+    const bool high = BITS == 4 && kk >= p.ks;  // ks % 8 == 0: no octet straddles
+    const int srow = r0 + (high ? kk - p.ks : kk);
+    bf16* dst = xs + row * ldx + kk;
+    if (m0 + row < p.m && srow < p.rows)  // rows % 8 == 0: all 8 in range
+      tiles::cp_async_16(dst, x + (long long)(m0 + row) * p.k +
+                                  (high ? p.rows + srow : srow));
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+}
+
 // wq (piece `piece` as stored) -> wb (bf16 [kr][kLdW]); rows beyond the
-// weight's and columns beyond n are zero. A thread owns 4 columns.
+// weight's and columns beyond n are zero. A thread owns 4 columns: column
+// c4 = (threadIdx.x % 16) * 4 of the tile, whose w8a16 bf16 scales s8 the
+// caller loaded.
 template <int BITS>
 __device__ __forceinline__ void dequantize(const Params& p, const int8_t* wq,
-                                           bf16* wb, int piece, int n0) {
+                                           bf16* wb, int piece, int n0,
+                                           const float (&s8)[4]) {
   const int c4 = (threadIdx.x % (kTileN / 4)) * 4;
   const int r0 = piece * p.ks;
-  // the bf16 scales of this thread's columns: w8a16 one set; w4a16 those of
-  // the groups of its current low and high rows, which hold for storage
-  // rows [*_begin, *_end) (no division on the way through a group)
-  float s_lo[4] = {0.f, 0.f, 0.f, 0.f}, s_hi[4] = {0.f, 0.f, 0.f, 0.f};
+  // w4a16: the bf16 scales of the groups of this thread's current low and
+  // high rows, which hold for storage rows [*_begin, *_end) (no division on
+  // the way through a group)
+  float s_lo[4] = {s8[0], s8[1], s8[2], s8[3]}, s_hi[4] = {0.f, 0.f, 0.f, 0.f};
   int lo_begin = 0, lo_end = 0, hi_begin = 0, hi_end = 0;
-  if (BITS == 8) load_scales(p.scale, n0 + c4, p.n, s_lo);
 #pragma unroll 4
   for (int r = threadIdx.x / (kTileN / 4); r < p.ks; r += kThreads / (kTileN / 4)) {
     const int srow = r0 + r;
@@ -250,16 +296,31 @@ __device__ __forceinline__ void dequantize(const Params& p, const int8_t* wq,
   }
 }
 
+// Every region and buffer of the layout of smem_bytes starts on a 16-byte
+// boundary; the compiler is told so, or it splits 8- and 16-byte accesses
+// at offsets it cannot bound.
+template <typename T>
+__device__ __forceinline__ T* assume16(T* ptr) {
+  return static_cast<T*>(__builtin_assume_aligned(ptr, 16));
+}
+
+// Buffer j % nb (nb is 1 or 2) of `count` elements each from `base`.
+template <typename T>
+__device__ __forceinline__ T* buffer(T* base, int j, int nb, int count) {
+  return assume16(base + (j & (nb - 1)) * count);
+}
+
 template <int BITS, typename XT>
 __global__ void __launch_bounds__(kThreads) qdot_kernel(const Params p) {
   constexpr int kPer = BITS == 8 ? 1 : 2;
   constexpr int kTiles = kMaxChunk / 16;
+  constexpr bool kBf16X = sizeof(XT) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int kr = kPer * p.ks, ldx = kr + 8;
   bf16* wb = reinterpret_cast<bf16*>(smem);
-  bf16* xs = wb + kr * kLdW;
-  int8_t* wq = reinterpret_cast<int8_t*>(xs + p.mc * ldx);
-  float* red = reinterpret_cast<float*>(wq + p.ks * kTileN);
+  bf16* xs = assume16(wb + kr * kLdW);
+  int8_t* wq = assume16(reinterpret_cast<int8_t*>(xs + p.nb * p.mc * ldx));
+  float* part = assume16(reinterpret_cast<float*>(wq + p.nb * p.ks * kTileN));
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -267,85 +328,96 @@ __global__ void __launch_bounds__(kThreads) qdot_kernel(const Params p) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gr = lane / 4, tg = lane % 4;
   const int n0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.z * p.mc;  // this cluster's chunk of x
+  const int rows_here = min(p.mc, p.m - m0);
+  const int mtiles = (rows_here + 15) / 16;
   const int mine = (p.pieces - rank + csize - 1) / csize;  // pieces of this block
+  const bool async_x = kBf16X && p.x_async;
 
-  for (int c = 0, m0 = 0; m0 < p.m; ++c, m0 += p.mc) {
-    const int rows_here = min(p.mc, p.m - m0);
-    const int mtiles = (rows_here + 15) / 16;
-    float acc[kTiles][2][4] = {};
-    for (int j = 0; j < mine; ++j) {
-      const int piece = rank + j * csize;
-      const bool load_w = mine > 1 || c == 0;
-      __syncthreads();  // the previous chunk's or piece's readers are done
-      if (load_w) load_piece(p, wq, piece, n0);
-      stage_x<BITS, XT>(p, xs, m0, piece);  // while the copies are in flight
-      if (load_w) {
-        tiles::cp_async_wait<0>();
-        __syncthreads();
-        dequantize<BITS>(p, wq, wb, piece, n0);
-      }
-      __syncthreads();
-      for (int kk = 0; kk < kr; kk += 16) {
-        uint32_t b[4];  // this warp's 16 columns: b0, b1 of two n8 tiles
-        tiles::ldsm_b_trans(b, wb, kLdW, kk, warp * 16, lane);
-#pragma unroll
-        for (int t = 0; t < kTiles; ++t) {
-          if (t < mtiles) {
-            uint32_t a[4];
-            tiles::ldsm_a(a, xs, ldx, t * 16, kk, lane);
-            tiles::mma_bf16(acc[t][0], a, b[0], b[1]);
-            tiles::mma_bf16(acc[t][1], a, b[2], b[3]);
-          }
-        }
-      }
-    }
+  // Stage j multiplies piece rank + j * csize. Its weight copy and (async_x)
+  // its x copy go to buffers j % nb, one cp.async group.
+  auto fetch = [&](int j) {
+    const int piece = rank + j * csize;
+    load_piece(p, buffer(wq, j, p.nb, p.ks * kTileN), piece, n0);
+    if (async_x) copy_x<BITS>(p, buffer(xs, j, p.nb, p.mc * ldx), m0, piece);
+    tiles::cp_async_commit();
+  };
+  fetch(0);
+  float s8[4] = {0.f, 0.f, 0.f, 0.f};  // w8a16: this thread's columns' scales
 
-    float* part = red + (c % 2) * p.mc * kLdRed;
+  float acc[kTiles][2][4] = {};
+  for (int j = 0; j < mine; ++j) {
+    const int piece = rank + j * csize;
+    bf16* xc = buffer(xs, j, p.nb, p.mc * ldx);
+    if (j > 0) __syncthreads();  // stage j - 1's readers of wb and buffers (j + 1) % nb are done
+    if (j + 1 < mine) fetch(j + 1);
+    if (!async_x) stage_x<BITS, XT>(p, xc, m0, piece);  // while the copies fly
+    if (j + 1 < mine) tiles::cp_async_wait<1>();
+    else tiles::cp_async_wait<0>();
+    __syncthreads();
+    if (BITS == 8 && j == 0)  // read once the copies have landed: no earlier
+      load_scales(p.scale, n0 + (threadIdx.x % (kTileN / 4)) * 4, p.n, s8);
+    dequantize<BITS>(p, buffer(wq, j, p.nb, p.ks * kTileN), wb, piece, n0, s8);
+    __syncthreads();
+    for (int kk = 0; kk < kr; kk += 16) {
+      uint32_t b[4];  // this warp's 16 columns: b0, b1 of two n8 tiles
+      tiles::ldsm_b_trans(b, wb, kLdW, kk, warp * 16, lane);
 #pragma unroll
-    for (int t = 0; t < kTiles; ++t) {
-      if (t < mtiles) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* at = part + (t * 16 + gr) * kLdRed + warp * 16 + h * 8 + 2 * tg;
-          *reinterpret_cast<float2*>(at) = make_float2(acc[t][h][0], acc[t][h][1]);
-          *reinterpret_cast<float2*>(at + 8 * kLdRed) =
-              make_float2(acc[t][h][2], acc[t][h][3]);
+      for (int t = 0; t < kTiles; ++t) {
+        if (t < mtiles) {
+          uint32_t a[4];
+          tiles::ldsm_a(a, xc, ldx, t * 16, kk, lane);
+          tiles::mma_bf16(acc[t][0], a, b[0], b[1]);
+          tiles::mma_bf16(acc[t][1], a, b[2], b[3]);
         }
-      }
-    }
-    cluster.sync();  // every block's partial tile of this chunk is written
-
-    // block `rank` sums rows rank, rank + csize, ... over the blocks in rank order
-    const int my_rows = (rows_here - rank + csize - 1) / csize;
-    for (int i = threadIdx.x; i < my_rows * (kTileN / 4); i += kThreads) {
-      const int row = rank + (i / (kTileN / 4)) * csize;
-      const int col = (i % (kTileN / 4)) * 4;
-      if (n0 + col >= p.n) continue;
-      float* src = part + row * kLdRed + col;
-      float4 v[kMaxCluster];  // all loads in flight before the first add
-#pragma unroll
-      for (int q = 0; q < kMaxCluster; ++q)
-        if (q < csize)
-          v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, q));
-      float4 s = v[0];
-#pragma unroll
-      for (int q = 1; q < kMaxCluster; ++q) {
-        if (q < csize) {
-          s.x += v[q].x; s.y += v[q].y; s.z += v[q].z; s.w += v[q].w;
-        }
-      }
-      float* out = p.y + (long long)(m0 + row) * p.n + n0 + col;
-      if (p.y_vec) {
-        *reinterpret_cast<float4*>(out) = s;
-      } else {
-        const float sv[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n0 + col + e < p.n) out[e] = sv[e];
       }
     }
   }
-  cluster.sync();  // no block leaves while another still reads its tiles
+
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    if (t < mtiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* at = part + (t * 16 + gr) * kLdRed + warp * 16 + h * 8 + 2 * tg;
+        *reinterpret_cast<float2*>(at) = make_float2(acc[t][h][0], acc[t][h][1]);
+        *reinterpret_cast<float2*>(at + 8 * kLdRed) =
+            make_float2(acc[t][h][2], acc[t][h][3]);
+      }
+    }
+  }
+  cluster.sync();  // every block's partial tile is written
+
+  // block `rank` sums rows rank, rank + csize, ... over the blocks in rank order
+  const int my_rows = (rows_here - rank + csize - 1) / csize;
+  for (int i = threadIdx.x; i < my_rows * (kTileN / 4); i += kThreads) {
+    const int row = rank + (i / (kTileN / 4)) * csize;
+    const int col = (i % (kTileN / 4)) * 4;
+    if (n0 + col >= p.n) continue;
+    float* src = part + row * kLdRed + col;
+    float4 v[kMaxCluster];  // all loads in flight before the first add
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < csize)
+        v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, q));
+    float4 sum = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) {
+      if (q < csize) {
+        sum.x += v[q].x; sum.y += v[q].y; sum.z += v[q].z; sum.w += v[q].w;
+      }
+    }
+    float* out = p.y + (long long)(m0 + row) * p.n + n0 + col;
+    if (p.y_vec) {
+      *reinterpret_cast<float4*>(out) = sum;
+    } else {
+      const float sv[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n0 + col + e < p.n) out[e] = sv[e];
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its tile
 }
 
 inline bool aligned16(const void* ptr) {
@@ -375,7 +447,7 @@ int launch(const Params& p, int cluster, int smem, cudaStream_t stream) {
                                smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.n + kTileN - 1) / kTileN, cluster, 1);
+  cfg.gridDim = dim3((p.n + kTileN - 1) / kTileN, cluster, (p.m + p.mc - 1) / p.mc);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -398,10 +470,13 @@ int run(Params p, int x_is_bf16, int k_slice, int cluster, int m_chunk,
   p.ks = k_slice;
   p.pieces = k_slice > 0 ? (p.rows + k_slice - 1) / k_slice : 0;
   p.mc = m_chunk;
-  const int smem = smem_bytes(kPer * p.ks, p.ks, p.mc);
+  p.nb = p.pieces > cluster ? 2 : 1;
+  const int smem = smem_bytes(kPer * p.ks, p.ks, p.mc, p.nb);
   // 16-byte paths: K % 8 == 0 keeps every quad of x (w4a16: both halves)
-  // aligned, N % 16 == 0 every 16 weight bytes of a row
+  // aligned, rows % 8 == 0 every octet of a bf16 x, N % 16 == 0 every 16
+  // weight bytes of a row
   p.x_vec = p.k % 8 == 0 && aligned16(p.x);
+  p.x_async = x_is_bf16 && p.x_vec && p.rows % 8 == 0;
   p.w_vec = p.n % 16 == 0 && aligned16(p.w);
   p.y_vec = p.n % 4 == 0 && aligned16(p.y);
   if (!plan_ok<BITS>(p, cluster, smem)) return (int)cudaErrorInvalidValue;

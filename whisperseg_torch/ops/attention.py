@@ -67,6 +67,38 @@ def attention_hm_reference(valid_len: int, q4: torch.Tensor, kt4: torch.Tensor,
     return o, (m + torch.log(l)).reshape(b, h, sp)
 
 
+def attention_hm_tiled_reference(valid_len: int, q4: torch.Tensor,
+                                 kt4: torch.Tensor, v4: torch.Tensor,
+                                 with_lse: bool = False):
+    """Plain model of the kernels' own walk (csrc/attention.cu), for tests
+    and the chip smoke run; the main path never calls it. The float32
+    scores of :func:`attention_hm_reference`, taken in 64-key tiles below
+    valid_len (all Sp when valid_len <= 0) with an online softmax: the
+    running max m, p = exp(s - m) rounded to q's type against that running
+    max, l summed from the rounded p, and l and the output sum rescaled by
+    exp(m_old - m_new); o = (sum p v) / l in q's type, lse = m + log(l)."""
+    b, h, sp, hd = q4.shape
+    s = _reference_scores(valid_len, q4, kt4)
+    v = v4.float()
+    live = min(valid_len, sp) if valid_len > 0 else sp
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"), device=q4.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (hd,), device=q4.device)
+    for k0 in range(0, live, 64):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new).to(q4.dtype).float()
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgst,bktf->bkgsf", p,
+                                         v[:, :, k0:k0 + 64])
+        m = m_new
+    o = (acc / l).reshape(b, h, sp, hd).to(q4.dtype)
+    if not with_lse:
+        return o
+    return o, (m + torch.log(l)).reshape(b, h, sp)
+
+
 def _check(valid_len: int, q4: torch.Tensor, kt4: torch.Tensor,
            v4: torch.Tensor) -> None:
     if q4.dim() != 4 or kt4.dim() != 4 or v4.dim() != 4:

@@ -218,51 +218,64 @@ MAX_CLUSTER = 8           # blocks of a thread-block cluster: the portable size
 MAX_PIECE_ROWS = 640      # contraction rows of one block's piece of K
 MAX_CHUNK_ROWS = 64       # rows of x a block multiplies at a time
 MAX_SMEM_BYTES = 232448   # shared memory a block may have on the H100
+# Above MAX_CHUNK_ROWS rows: pieces of LARGE_M_PIECE_ROWS contraction rows,
+# and the smallest cluster that launches at least LARGE_M_BLOCKS blocks
+# (about 3 a streaming multiprocessor of the H100's 132): the fastest plans
+# of a sweep at M 512 (chip_qdot_times.py --sweep, PERF.md).
+LARGE_M_PIECE_ROWS = 64
+LARGE_M_BLOCKS = 384
 
 
 class QdotPlan(NamedTuple):
     """Geometry of one w8a16 / w4a16 launch. The grid is ``n_tiles`` x
-    ``cluster`` blocks; the blocks of a cluster share one tile of ``TILE_N``
-    output columns and split the contraction: piece ``p`` is weight storage
-    rows ``[p * k_slice, (p + 1) * k_slice)`` (w4a16: byte rows, each holding
-    contraction rows ``i`` and ``i + K/2``), and block ``r`` of a cluster
-    takes pieces ``r, r + cluster, ...``. Each block multiplies ``m_chunk``
-    rows of x at a time and adds its partial tile to its cluster's in rank
-    order. ``smem_bytes`` is the dynamic shared memory a block takes."""
+    ``cluster`` x ``chunks`` blocks: a cluster per tile of ``TILE_N`` output
+    columns and chunk of ``m_chunk`` rows of x. The blocks of a cluster split
+    the contraction: piece ``p`` is weight storage rows
+    ``[p * k_slice, (p + 1) * k_slice)`` (w4a16: byte rows, each holding
+    contraction rows ``i`` and ``i + K/2``), block ``r`` of a cluster takes
+    pieces ``r, r + cluster, ...`` and adds its partial tile to its
+    cluster's in rank order. ``smem_bytes`` is the dynamic shared memory a
+    block takes."""
     k_slice: int
     cluster: int
     m_chunk: int
     smem_bytes: int
     n_tiles: int
     pieces: int
+    chunks: int
 
     # the fields the C entry points take, in their order
     LAUNCH_FIELDS = ("k_slice", "cluster", "m_chunk")
 
     @property
     def blocks(self) -> int:
-        return self.n_tiles * self.cluster
+        return self.n_tiles * self.cluster * self.chunks
 
     def launch_args(self) -> tuple:
         return tuple(getattr(self, f) for f in self.LAUNCH_FIELDS)
 
 
-def _smem_bytes(rows: int, k_slice: int, m_chunk: int) -> int:
+def _smem_bytes(rows: int, k_slice: int, m_chunk: int, buffers: int) -> int:
     """Dynamic shared memory of a block (the layout of csrc/qdot.cu): the
-    bf16 piece and x chunk with rows padded by 16 bytes, the piece as
-    stored, and two float32 partial tiles; ``rows`` contraction rows a piece."""
+    bf16 piece; ``buffers`` bf16 x chunks with rows padded by 16 bytes and
+    as many pieces as stored (2 where a block has more than one piece); the
+    float32 partial tile; ``rows`` contraction rows a piece."""
     ld = TILE_N + 8
-    return (2 * rows * ld + 2 * m_chunk * (rows + 8) + k_slice * TILE_N
-            + 2 * 4 * m_chunk * ld)
+    return (2 * rows * ld + buffers * (2 * m_chunk * (rows + 8) + k_slice * TILE_N)
+            + 4 * m_chunk * ld)
 
 
 @functools.lru_cache(maxsize=None)
 def qdot_plan(m: int, k: int, n: int, bits: int) -> QdotPlan:
     """The launch geometry of the w8a16 (``bits`` 8) or w4a16 (4) kernel for
-    x [m, k] and a weight [k, n]. K is cut into at most 8 pieces of whole
-    k16 steps, one a block of the cluster, as long as a piece stays within
-    ``MAX_PIECE_ROWS`` (up to K = 5120); x is walked in chunks of up to 64
-    rows, fewer where shared memory would not hold them."""
+    x [m, k] and a weight [k, n]. x is cut into chunks of up to 64 rows, one
+    cluster each. Up to ``MAX_CHUNK_ROWS`` rows (the decode step, the
+    prefill) K is cut into at most 8 pieces of whole k16 steps, one a block
+    of the cluster, as long as a piece stays within ``MAX_PIECE_ROWS`` (up
+    to K = 5120), so that each weight byte is read once a launch. Above it,
+    where the chunks fill the card, K is cut into pieces of
+    ``LARGE_M_PIECE_ROWS`` contraction rows that the cluster's blocks walk.
+    Chunks are smaller where shared memory would not hold them."""
     if bits == 8:
         rows, per = k, 1
     elif bits == 4:
@@ -274,15 +287,27 @@ def qdot_plan(m: int, k: int, n: int, bits: int) -> QdotPlan:
     if min(m, k, n) <= 0:
         raise ValueError(f"qdot_plan: empty product {(m, k, n)}")
     unit = 16 // per  # storage rows of one k16 step
-    k_slice = min(unit * -(-rows // (MAX_CLUSTER * unit)), MAX_PIECE_ROWS // per)
-    pieces = -(-rows // k_slice)
+    n_tiles = -(-n // TILE_N)
     m_chunk = min(MAX_CHUNK_ROWS, 16 * -(-m // 16))
-    while m_chunk > 16 and _smem_bytes(per * k_slice, k_slice,
-                                       m_chunk) > MAX_SMEM_BYTES:
+    while True:
+        chunks = -(-m // m_chunk)
+        if m <= MAX_CHUNK_ROWS:
+            k_slice = min(unit * -(-rows // (MAX_CLUSTER * unit)),
+                          MAX_PIECE_ROWS // per)
+            pieces = -(-rows // k_slice)
+            cluster = min(MAX_CLUSTER, pieces)
+        else:
+            k_slice = min(LARGE_M_PIECE_ROWS // per, unit * -(-rows // unit))
+            pieces = -(-rows // k_slice)
+            cluster = next((c for c in range(1, MAX_CLUSTER) if c <= pieces and
+                            n_tiles * c * chunks >= LARGE_M_BLOCKS),
+                           min(MAX_CLUSTER, pieces))
+        buffers = 2 if pieces > cluster else 1
+        smem = _smem_bytes(per * k_slice, k_slice, m_chunk, buffers)
+        if smem <= MAX_SMEM_BYTES or m_chunk == 16:
+            break
         m_chunk -= 16
-    return QdotPlan(k_slice, min(MAX_CLUSTER, pieces), m_chunk,
-                    _smem_bytes(per * k_slice, k_slice, m_chunk),
-                    -(-n // TILE_N), pieces)
+    return QdotPlan(k_slice, cluster, m_chunk, smem, n_tiles, pieces, chunks)
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
@@ -307,7 +332,7 @@ def _kernel_operands(x: torch.Tensor, k: int, storage: torch.Tensor,
                      scale: torch.Tensor):
     """Checks shared by both kernels' wrappers; returns x as the kernel
     reads it ([M, k], contiguous float32 or bfloat16; the kernel rounds to
-    bf16)."""
+    bf16; bfloat16 above ``MAX_CHUNK_ROWS`` rows)."""
     if x.shape[-1] != k:
         raise ValueError(f"qdot: x {tuple(x.shape)} does not contract with a "
                          f"weight of {k} rows")
@@ -323,6 +348,11 @@ def _kernel_operands(x: torch.Tensor, k: int, storage: torch.Tensor,
                          f"[1, {MAX_KERNEL_ROWS}]")
     if x2.dtype not in (torch.float32, torch.bfloat16):
         x2 = x2.float()
+    if x2.shape[0] > MAX_CHUNK_ROWS:
+        # several chunks of x, each read by every column tile's cluster: x
+        # is rounded to bf16 once here (the kernel's own first rounding), so
+        # that the kernel streams half the bytes, by cp.async
+        x2 = x2.to(torch.bfloat16)
     return x2.contiguous()
 
 
