@@ -2,48 +2,53 @@
 """Smoke run of the PyTorch/CUDA port (``whisperseg_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --int8-kv-tables [PACKAGE_ROOT]
 
 Run it from the root of a checkout. It builds the port's CUDA kernels from
 ``whisperseg_torch/csrc`` (one ``nvcc`` per source, all started together) and
 then runs, in order:
 
   1. setup: the card's name and power limit, the torch version, the build time,
-     the encoder attention's and the quantized products' registers and spills
-     (``nvcc -Xptxas -v``), and the per-launch floor (one trivial launch
-     replayed from a CUDA graph);
+     every kernel's registers and spills (``nvcc -Xptxas -v``), and the
+     per-launch floor (one trivial launch replayed from a CUDA graph);
   2. kernels: each kernel against its plain PyTorch version on the card at the
-     main path's shapes (the mel kernel also at every n_fft, the encoder
+     main path's shapes, with the kernel's time (also replayed from a CUDA
+     graph), the plain version's, one library call's as a yardstick where
+     there is one, and the least time the card could take for the same work
+     with the kernel's share of it: the mel kernel at every n_fft and at the
+     mouse preset, beside the plain version's graph time; the encoder
      attention at eight shapes, in bf16 also against the plain model of its
-     own walk and bit-identical on a second call, the quantized products at
-     every projection shape of every model size and at ragged shapes, each
-     called twice and required bit-identical), with the kernel's time (also
-     replayed from a CUDA graph), the plain version's, one library call's as
-     a yardstick where there is one (and for the encoder attention, SDPA's
-     time replayed from a CUDA graph with a boolean and an additive mask,
-     and the backend that ran), and the least time the card could take for
-     the same work; the quantized products' graph times at the base model's
-     decode shapes and their sum over a decoder step beside its bound, and
-     at M 512 beside the large-M route (dequantize, then one matmul); the
-     encoder attention's two backward kernels (dK/dV, dQ) against the plain
-     backward at seven shapes, bit-identical on a second run, with a
-     finite-difference spot check; then the device memory still allocated,
-     before and after cuBLAS's workspaces (the yardsticks') are freed;
+     own walk, with SDPA's time and backend; the quantized products at every
+     projection shape of every model size and at ragged shapes, their graph
+     times at the decode shapes and over a decoder step, and at M 512 beside
+     the large-M route (dequantize, then one matmul); the int8
+     cross-attention at six cases (one with seq_len 301) also against the
+     plain model of its cluster walk; the encoder attention's two backward
+     kernels at seven shapes with a finite-difference spot check. Every
+     kernel is called twice and must give the same bits (the mel kernel, the
+     bf16 attention, the quantized products, the cross-attention, the
+     backward kernels). Then the device memory still allocated, before and
+     after cuBLAS's workspaces (the yardsticks') are freed;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
   4. serve: one ``Segmenter`` on the shipped base checkpoint (bfloat16 as
      shipped, default arguments: beam 4 and the checkpoint's
-     post-processing) answers synthetic requests, each table printed as one
-     JSON line (``whisperseg_torch/card_tables_bf16.json`` records them);
-     every batch must launch the mel kernel once and the attention kernel
-     once per encoder layer;
+     post-processing) answers synthetic requests, each table and each
+     window's tokens printed as JSON lines
+     (``whisperseg_torch/card_tables_bf16.json`` records them); every batch
+     must launch the mel kernel once and the attention kernel once per
+     encoder layer;
   5. quantized serve: the same checkpoint as ``inference_dtype="int8"``, as
      ``"int4"``, and as ``"int8"`` with ``int8_kv=True`` answers two of those
      requests each; besides the above, every decoder step must launch the
      w8a16 (or w4a16) kernel 8 times per decoder layer, and every
-     single-token step the int8 cross-attention kernel once per layer;
-  6. profile: one more request, in bfloat16 and then in int8 with
-     ``int8_kv``, timed stage by stage, then under ``torch.profiler``: the
-     device's busy share and its time by kernel;
+     single-token step the int8 cross-attention kernel once per layer; the
+     ``int8_kv`` tables and tokens are printed as JSON lines
+     (``whisperseg_torch/card_tables_int8_kv.json`` records them);
+  6. profile: the frontend of one batch at the mouse preset, then one more
+     request, in bfloat16 and then in int8 with ``int8_kv``, timed stage by
+     stage, then under ``torch.profiler``: the device's busy share and its
+     time by kernel;
   7. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
      base checkpoint at full width (bf16 compute, float32 master weights,
      AdamW, the CLI's default frame head) for 30 steps on a synthetic tone
@@ -58,6 +63,11 @@ The last three lines of its output are the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. A failed phase
 raises, and the script then exits non-zero without them. Without CUDA it
 exits non-zero at once.
+
+``--int8-kv-tables`` runs only the ``int8_kv`` serve requests and prints
+their tables and tokens, with the ``whisperseg_torch`` package found under
+PACKAGE_ROOT (default: this checkout), so that another checkout's kernels
+can be recorded on the same card.
 """
 
 from __future__ import annotations
@@ -187,11 +197,15 @@ def ptxas_summary(log: str, key: str) -> list:
             spill = int(spills.group(1)) + int(spills.group(2))
         used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if used and name and key in name:
-            # <kernel>ILi<n>E[<f | 13__nv_bfloat16>]E: kernel<n[, type]>
-            short = re.search(rf"({key}[a-z_]*)ILi(\d+)E(f|13__nv_bfloat16)?E", name)
-            kind = {"f": ", float", "13__nv_bfloat16": ", bf16", None: ""}
-            label = (f"{short.group(1)}<{short.group(2)}{kind[short.group(3)]}>"
-                     if short else name)
+            # <kernel>[I<args>E]: kernel[<args>], each argument L<i|b><n>E
+            # (a number), f (float) or 13__nv_bfloat16 (bf16)
+            short = re.search(rf"\d({key}[a-z_0-9]*)(?:I((?:L[ib]-?\d+E|f|13__nv_bfloat16)+)E)?",
+                              name)
+            args = [] if not (short and short.group(2)) else [
+                num or ("float" if ty == "f" else "bf16") for num, ty in
+                re.findall(r"L[ib](-?\d+)E|(f|13__nv_bfloat16)", short.group(2))]
+            label = (name if not short else short.group(1) + (
+                f"<{', '.join(args)}>" if args else ""))
             rows.append((label, int(used.group(1)), spill, int(used.group(2) or 0)))
             name = None
     return rows
@@ -200,38 +214,75 @@ def ptxas_summary(log: str, key: str) -> list:
 # ------------------------------------------------------------------ kernels
 
 
+MEL_CASES = [  # sr, spec_time_step, min_frequency, seconds a clip (1000 frames)
+    (32000, SPEC_TIME_STEP, 0, 2.5), (64000, SPEC_TIME_STEP, 0, 2.5),
+    (128000, SPEC_TIME_STEP, 0, 2.5), (256000, SPEC_TIME_STEP, 0, 2.5),
+    (400000, SPEC_TIME_STEP, 0, 2.5),
+    # the mouse preset (config/segment_config.json): n_fft 4096, hop 150,
+    # bands from 35 kHz up
+    (300000, 0.0005, 35000, 0.5)]
+
+
+def mel_bound(re, mel, bands):
+    """(bound ms, by) of K1 on these inputs: the spectrum's bins that some
+    band covers read once (8 bytes a bin and frame), the band weights and
+    rows read once, the output written once; 3 operations a power and 2 a
+    band entry of each frame."""
+    b, _, frames = re.shape
+    n_mel = mel.shape[1]
+    lo, hi = bands.rows[:, 0], bands.rows[:, 1]
+    used = hi > lo
+    span = int((hi[used].max() - lo[used].min()).item()) if used.any() else 0
+    entries = int((hi - lo).clamp(min=0).sum().item())
+    nbytes = 8 * b * span * frames + 4 * entries + 8 * n_mel + 4 * b * n_mel * frames
+    flops = b * frames * (3 * span + 2 * entries)
+    return bound(nbytes, flops, torch.float32)
+
+
 def check_melproject(device) -> dict:
-    """K1 against its plain version for every n_fft (4 clips of 1000 frames,
-    on the spectra the frontend feeds it); returns the main path's row
-    (32 kHz, n_fft 512)."""
+    """K1 against its plain version for every n_fft and the mouse preset (4
+    clips of 1000 frames, on the spectra the frontend feeds it), a second
+    call bit-identical; the kernel's and the plain version's graph times and
+    the kernel's share of the bound. Returns the main path's row (32 kHz,
+    n_fft 512)."""
     from whisperseg_torch.audio.frontend import Frontend
     from whisperseg_torch.ops import logmel
     from whisperseg_torch.synthetic import tone_bursts
 
     row = None
-    for sr in (32000, 64000, 128000, 256000, 400000):
-        fr = Frontend(sr, SPEC_TIME_STEP)
-        clips = np.stack([tone_bursts(s, sr=sr, duration=2.5) for s in range(BATCH)])
-        re, im, mel = fr.spectrum(torch.from_numpy(clips).to(device))
-        got = logmel.melproject_reim(re, im, mel)
-        want = logmel.melproject_reference(re, im, mel)
+    for sr, step, fmin, seconds in MEL_CASES:
+        fr = Frontend(sr, step, fmin)
+        clips = np.stack([tone_bursts(s, sr=sr, duration=seconds)
+                          for s in range(BATCH)])
+        re, im, mel, bands = fr.spectrum(torch.from_numpy(clips).to(device))
+
+        def kernel():
+            return logmel.melproject_reim(re, im, mel, bands)
+
+        def plain():
+            return logmel.melproject_reference(re, im, mel)
+        got, again, want = kernel(), kernel(), plain()
         err = (got - want).abs().max().item()
+        same = torch.equal(got, again)
         b, n_freq, frames = re.shape
-        n_mel = mel.shape[1]
-        ms = cuda_ms(lambda: logmel.melproject_reim(re, im, mel), 50)
-        in_graph = graph_ms(lambda: logmel.melproject_reim(re, im, mel), 50)
-        plain_ms = cuda_ms(lambda: logmel.melproject_reference(re, im, mel), 20)
-        nbytes = 4 * (2 * b * n_freq * frames + n_freq * n_mel + b * n_mel * frames)
-        flops = b * frames * n_freq * (3 + 2 * n_mel)
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
-        print(f"  melproject n_fft {fr.n_fft:5d} [{b}, {n_freq}, {frames}]: "
-              f"max|err| {err:.2e} (tol 2e-5)  kernel {ms:.4f} ms (graph "
-              f"{in_graph:.4f} ms)  plain {plain_ms:.4f} ms  bound "
-              f"{bound_ms:.4f} ms ({bound_by})",
-              flush=True)
-        if not err <= 2e-5:
-            raise AssertionError(f"melproject n_fft {fr.n_fft}: max|err| {err}")
-        if sr == SR:
+        ms = cuda_ms(kernel, 50)
+        in_graph = graph_ms(kernel, 50)
+        plain_ms = cuda_ms(plain, 20)
+        plain_graph = graph_ms(plain, 20)
+        bound_ms, bound_by = mel_bound(re, mel, bands)
+        widths = (bands.rows[:, 1] - bands.rows[:, 0]).clamp(min=0)
+        print(f"  melproject n_fft {fr.n_fft:5d} sr {sr:6d} fmin {fmin:5d} "
+              f"[{b}, {n_freq}, {frames}]: max|err| {err:.2e} (tol 2e-5), "
+              f"second call {'identical' if same else 'DIFFERS'}; bands "
+              f"{int(widths.sum())} of {n_freq * mel.shape[1]} entries, widest "
+              f"{int(widths.max())}\n    kernel {ms:.4f} ms (graph "
+              f"{in_graph:.4f} ms, {100 * bound_ms / in_graph:.1f} % of the "
+              f"bound)  plain {plain_ms:.4f} ms (graph {plain_graph:.4f} ms)  "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        if not (err <= 2e-5 and same):
+            raise AssertionError(f"melproject n_fft {fr.n_fft} sr {sr}: "
+                                 f"max|err| {err}, second call identical {same}")
+        if (sr, fmin) == (SR, 0):
             row = {"name": "melproject", "route": "cuda",
                    "source": "whisperseg_torch/csrc/melproject.cu",
                    "replaces": "whisperseg_tpu/ops/logmel_pallas.py:66",
@@ -722,15 +773,22 @@ CROSS_ATTENTION_CASES = [  # name, B, S, H, Hkv, hd
     ("hd128", DECODE_ROWS, VALID, 4, 4, 128),
     ("GQA 8/2", DECODE_ROWS, VALID, 8, 2, HD),
     ("B 1", 1, VALID, 8, 8, HD),
+    # not a multiple of the positions a block (4 x 76 cover 301)
+    ("ragged 301", DECODE_ROWS, 301, 8, 8, HD),
 ]
 
 
 def check_cross_attention(device) -> dict:
     """K5 against its plain version (same roundings, another order of sums,
     and weights that land on the other side of a bf16 tie: 1e-3 of the
-    largest output), against exact attention on the unquantized K/V (2 % of
-    the largest output, the JAX package's tolerance), and with a poisoned
-    tail beyond seq_len (1e-5). Returns the main path's row (base)."""
+    largest output), against the plain model of its own walk
+    (``cross_attention_int8_walk`` under the kernel's plan: the same merge
+    order, float32 sums within a block in another order, so again weights
+    at a bf16 tie: 1e-3 of the largest output), against exact attention on
+    the unquantized K/V (2 % of the largest output, the JAX package's
+    tolerance), and with a poisoned tail beyond seq_len (1e-5); a second
+    call bit-identical. Prints each case's graph time and share of the
+    bound. Returns the main path's row (base)."""
     from whisperseg_torch.ops import cross_attention as ca
 
     gen = torch.Generator(device="cpu").manual_seed(5)
@@ -741,14 +799,19 @@ def check_cross_attention(device) -> dict:
         v = (torch.randn(1, b, s, hkv, hd, generator=gen) * 0.5).to(device)
         kq, ks, vq, vs, seq = ca.quantize_kv_for_kernel(k, v)
         args = (kq[0], ks[0], vq[0], vs[0], hkv, seq, h)
+        plan = ca.cross_attention_plan(b, seq, hkv, h // hkv, hd)
         got = ca.cross_attention_int8(q, *args)
+        same = torch.equal(got, ca.cross_attention_int8(q, *args))
         want = ca.cross_attention_int8_reference(q, *args)
+        walk = ca.cross_attention_int8_walk(q, *args, cluster=plan.cluster,
+                                            per_block=plan.per_block)
         qh = q.double().reshape(b, hkv, h // hkv, hd) * hd ** -0.5
         probs = torch.softmax(
             torch.einsum("bkgd,bskd->bkgs", qh, k[0].double()), dim=-1)
         exact = torch.einsum("bkgs,bskd->bkgd", probs, v[0].double()).reshape(b, -1)
         top = exact.abs().max().item()
         err = (got - want).abs().max().item()
+        err_walk = (got - walk).abs().max().item()
         err_exact = (got.double() - exact).abs().max().item()
 
         def poisoned(t, fill):
@@ -761,24 +824,28 @@ def check_cross_attention(device) -> dict:
         err_p = (got_p - got).abs().max().item()
 
         ms = cuda_ms(lambda: ca.cross_attention_int8(q, *args), 50)
+        in_graph = graph_ms(lambda: ca.cross_attention_int8(q, *args), 50)
         plain_ms = cuda_ms(lambda: ca.cross_attention_int8_reference(q, *args), 20)
         nbytes = (kq[0].numel() + vq[0].numel() + 2 * (ks[0].numel() + vs[0].numel())
                   + 2 * 4 * q.numel())
         bound_ms, bound_by = bound(nbytes, 4 * b * h * s * hd, torch.bfloat16)
-        print(f"  cross_attention_int8 {name:8s} [{b}, {s}, {h}/{hkv}, {hd}]: "
+        print(f"  cross_attention_int8 {name:10s} [{b}, {s}, {h}/{hkv}, {hd}]: "
               f"max|err| {err:.2e} ({err / top:.1e} of max|out|, tol 1e-3); "
-              f"against exact attention {err_exact / top:.2e} (tol 2e-2); "
-              f"poisoned tail {err_p:.1e} (tol 1e-5)  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})",
-              flush=True)
-        if not (err <= 1e-3 * top and err_exact <= 0.02 * top and err_p <= 1e-5):
+              f"its own walk {err_walk / top:.1e} (tol 1e-3); against exact "
+              f"attention {err_exact / top:.2e} (tol 2e-2); poisoned tail "
+              f"{err_p:.1e} (tol 1e-5); second call "
+              f"{'identical' if same else 'DIFFERS'}\n    kernel {ms:.4f} ms "
+              f"(graph {in_graph:.4f} ms, {100 * bound_ms / in_graph:.1f} % of "
+              f"the bound)  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms "
+              f"({bound_by}); {plan.blocks} blocks, cluster {plan.cluster} of "
+              f"{plan.per_block} positions", flush=True)
+        if not (err <= 1e-3 * top and err_walk <= 1e-3 * top
+                and err_exact <= 0.02 * top and err_p <= 1e-5 and same):
             raise AssertionError(f"cross_attention_int8 {name}: max|err| {err}, "
-                                 f"against exact {err_exact}, poisoned {err_p}, "
-                                 f"max|out| {top}")
+                                 f"walk {err_walk}, against exact {err_exact}, "
+                                 f"poisoned {err_p}, max|out| {top}, second "
+                                 f"call identical {same}")
         if name == "base":
-            in_graph = graph_ms(lambda: ca.cross_attention_int8(q, *args), 50)
-            print(f"    note: replayed from a CUDA graph, without the host's "
-                  f"dispatch: {in_graph:.4f} ms", flush=True)
             row = {"name": "cross_attention_int8", "route": "cuda",
                    "source": "whisperseg_torch/csrc/cross_attention_int8.cu",
                    "replaces": "whisperseg_tpu/ops/cross_attention.py:48",
@@ -793,9 +860,14 @@ def check_cross_attention(device) -> dict:
 
 
 @torch.no_grad()
-def top2_margins(seg, frontend, clips: np.ndarray, tokens) -> np.ndarray:
+def top2_margins(seg, frontend, clips: np.ndarray, tokens,
+                 int8_kv: bool = False) -> np.ndarray:
     """Teacher-forced decoder logits along ``tokens`` -> [N, L] gap between
-    the two largest logits of the prediction made at each position."""
+    the two largest logits of the prediction made at each position. With
+    ``int8_kv`` the cross K/V are int8 and the tokens after the prompt go
+    one a step, as the decode loop takes them (the int8 cross-attention
+    kernel's path)."""
+    from whisperseg_torch import tokenizer as tok
     from whisperseg_torch.models.whisper import (decoder_step, encoder_forward,
                                                  init_cache, precompute_cross_kv)
 
@@ -803,10 +875,20 @@ def top2_margins(seg, frontend, clips: np.ndarray, tokens) -> np.ndarray:
     ids = torch.tensor(tokens, device=seg.device)
     feats = frontend.features_for_clips(torch.from_numpy(clips).to(seg.device),
                                         cfg.total_spec_columns)
-    xk, xv = precompute_cross_kv(seg.params, cfg,
-                                 encoder_forward(seg.params, cfg, feats))
+    enc = encoder_forward(seg.params, cfg, feats)
+    xk, xv = precompute_cross_kv(seg.params, cfg, enc, int8_kv=int8_kv)
     ck, cv = init_cache(cfg, ids.shape[0], ids.shape[1], seg.device)
-    logits, _, _ = decoder_step(seg.params, cfg, xk, xv, ids, 0, ck, cv)
+    if not int8_kv:
+        logits, _, _ = decoder_step(seg.params, cfg, xk, xv, ids, 0, ck, cv)
+    else:
+        pl, seq_len = len(tok.PROMPT_IDS), enc.shape[1]
+        chunks = [(0, pl)] + [(t, t + 1) for t in range(pl, ids.shape[1])]
+        parts = []
+        for a, b in chunks:
+            out, ck, cv = decoder_step(seg.params, cfg, xk, xv, ids[:, a:b], a,
+                                       ck, cv, cross_seq_len=seq_len)
+            parts.append(out)
+        logits = torch.cat(parts, dim=1)
     top2 = logits.topk(2, dim=-1).values
     return (top2[..., 0] - top2[..., 1]).cpu().numpy()
 
@@ -924,7 +1006,7 @@ def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
                   f"{trials}, {windows:2d} windows -> {len(table['onset']):3d} "
                   f"segments{beside} in {dt:.3f} s ({duration / dt:.1f} "
                   f"audio-s/s)", flush=True)
-            if inference_dtype == "bfloat16":  # the card's table, recorded
+            if inference_dtype == "bfloat16" or int8_kv:  # the card's table, recorded
                 print("  table " + json.dumps({"request": [seed, duration, trials],
                                               "table": table}), flush=True)
             if not table["onset"]:
@@ -957,12 +1039,13 @@ def serve_phase(device, requests, inference_dtype="bfloat16", int8_kv=False,
     return seg, counts, segments
 
 
-def card_tokens(seg, requests) -> None:
+def card_tokens(seg, requests, int8_kv: bool = False) -> None:
     """For each request, its windows' beam-4 token ids and the top-2 logit
     margin of each prediction along them (teacher-forced), one JSON line a
-    request, kept with the tables in whisperseg_torch/card_tables_bf16.json:
-    where a table departs from the JAX package's, they give the first
-    differing decode step and how close the card's pick was there."""
+    request, kept with the tables in whisperseg_torch/card_tables_bf16.json
+    (card_tables_int8_kv.json with ``int8_kv``): where a table departs from
+    the JAX package's, they give the first differing decode step and how
+    close the card's pick was there."""
     from whisperseg_torch import tokenizer as tok
     from whisperseg_torch.audio.frontend import Frontend
     from whisperseg_torch.synthetic import tone_bursts
@@ -974,10 +1057,11 @@ def card_tokens(seg, requests) -> None:
                                            SR, dsc["spec_time_step"], trials)
         tokens = [row[:row.index(tok.EOT_ID) + 1] if tok.EOT_ID in row else row
                   for row in seg._generate_tokens(clips, frontend, BATCH,
-                                                  int(dsc["max_length"]), 4, 1.0)]
+                                                  int(dsc["max_length"]), 4, 1.0,
+                                                  int8_kv=int8_kv)]
         width = max(map(len, tokens))
         padded = [row + [tok.PAD_ID] * (width - len(row)) for row in tokens]
-        margins = top2_margins(seg, frontend, clips, padded)
+        margins = top2_margins(seg, frontend, clips, padded, int8_kv)
         print("  tokens " + json.dumps({
             "request": [seed, duration, trials], "tokens": tokens,
             "margins": [[round(float(x), 4) for x in m[:len(row)]]
@@ -1021,6 +1105,28 @@ def stage_times(seg, audio, int8_kv: bool) -> None:
           f"{t_fh * 1e3:.2f} ms, beam-4 decode {t_dec * 1e3:.2f} ms (longest "
           f"output {longest} tokens, {t_dec * 1e3 / max(longest, 1):.2f} ms "
           f"per token)", flush=True)
+
+
+def mouse_frontend_stage(device) -> None:
+    """The frontend stage of one batch (4 windows of 1000 columns) at the
+    mouse preset (config/segment_config.json: sr 300000, spec_time_step
+    0.0005, min_frequency 35000; n_fft 4096): reflect pad, framing, rfft,
+    K1, floor and scaling."""
+    from whisperseg_torch.audio.frontend import Frontend
+    from whisperseg_torch.synthetic import tone_bursts
+
+    sr, step = 300000, 0.0005
+    fr = Frontend(sr, step, 35000)
+    clips = torch.from_numpy(np.stack([
+        tone_bursts(s, sr=sr, duration=1000 * step) for s in range(BATCH)])).to(device)
+
+    def stage():
+        return fr.features_for_clips(clips, 1000)
+    host = sorted(timed(stage)[1] for _ in range(7))[3]
+    print(f"  mouse preset, frontend of one batch ({BATCH} windows x 1000 "
+          f"columns, n_fft {fr.n_fft}): {cuda_ms(stage, 20):.4f} ms a call "
+          f"back to back (CUDA events), median {host * 1e3:.3f} ms synchronized "
+          f"(host clock)", flush=True)
 
 
 def profile_phase(seg, int8_kv: bool = False) -> None:
@@ -1298,10 +1404,26 @@ def train_phase(device) -> dict:
 # --------------------------------------------------------------------- main
 
 
+def int8_kv_tables(root: str) -> int:
+    """The int8 + ``int8_kv`` serve requests alone, their tables and tokens
+    printed, with the port's package from ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    device = torch.device("cuda")
+    card = card_line()
+    print(f"[int8_kv tables] {card}; package from {os.path.abspath(root)}",
+          flush=True)
+    qseg, _, _ = serve_phase(device, QUANT_REQUESTS, "int8", True)
+    card_tokens(qseg, QUANT_REQUESTS, int8_kv=True)
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--int8-kv-tables"]:
+        return int8_kv_tables(sys.argv[2] if len(sys.argv) > 2 else ROOT)
     # full float32 products wherever a float32 matmul or convolution runs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1316,7 +1438,8 @@ def main() -> int:
     logs = _build.build_all()
     print(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s into "
           f"{os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
-    for source, key in (("attention", "attention_hm"), ("qdot", "qdot")):
+    for source, key in (("melproject", "melproject"), ("attention", "attention_hm"),
+                        ("qdot", "qdot"), ("cross_attention_int8", "cross_attention")):
         for kernel, regs, spill, static in ptxas_summary(logs.get(source, ""), key):
             print(f"[setup] ptxas {kernel}: {regs} registers, {spill} bytes "
                   f"spilled, {static} bytes static shared memory", flush=True)
@@ -1356,8 +1479,11 @@ def main() -> int:
         qseg, counts, _ = serve_phase(device, QUANT_REQUESTS, dtype, int8_kv,
                                       baseline=segments)
         launches.update({name: counts[name] for name in names})
+        if int8_kv:  # whisperseg_torch/card_tables_int8_kv.json records them
+            card_tokens(qseg, QUANT_REQUESTS, int8_kv=True)
 
     print("[profile] bfloat16", flush=True)
+    mouse_frontend_stage(device)
     profile_phase(seg)
     print("[profile] int8 with int8_kv", flush=True)
     profile_phase(qseg, int8_kv=True)

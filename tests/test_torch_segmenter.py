@@ -10,10 +10,11 @@ package's current output; the chip smoke run holds the port on the card to
 that file. Regenerate it with ``python tests/test_torch_segmenter.py``.
 
 The tables the card gave for the chip smoke run's bf16 requests are kept in
-whisperseg_torch/card_tables_bf16.json, with each window's tokens and the
+whisperseg_torch/card_tables_bf16.json, those of its int8 + ``int8_kv``
+requests in card_tables_int8_kv.json, each with the windows' tokens and the
 card's top-2 logit margins along them;
-``python tests/test_torch_segmenter.py --card-tokens`` compares them with
-JAX's head-major path window by window.
+``python tests/test_torch_segmenter.py --card-tokens`` compares them window
+by window with JAX's head-major path and with JAX's TPU kernel path.
 """
 
 import contextlib
@@ -42,6 +43,7 @@ TINY = os.path.join(ROOT, "pretrained", "whisperseg-tiny-animal-vad")
 BASE = os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad")
 GOLDEN = os.path.join(ROOT, "whisperseg_torch", "golden_tiny.json")
 CARD_TABLES = os.path.join(ROOT, "whisperseg_torch", "card_tables_bf16.json")
+CARD_TABLES_INT8_KV = os.path.join(ROOT, "whisperseg_torch", "card_tables_int8_kv.json")
 GOLDEN_REQUEST = {"seed": 1, "duration": 6.0, "sr": 32000, "num_beams": 4,
                   "num_trials": 3}
 
@@ -282,36 +284,50 @@ def window_report(jseg, seg, audio, trials) -> None:
 
 
 def card_tokens_report() -> None:
-    """For each request recorded from the card
-    (whisperseg_torch/card_tables_bf16.json), its table and windows against
-    JAX's head-major path: the windows whose beam-4 tokens differ, the first
-    differing position, both picks, and the card's top-2 logit margin of
-    the prediction there."""
+    """For each request recorded from the card, its table and windows
+    against the JAX package: the bf16 tables
+    (whisperseg_torch/card_tables_bf16.json) against JAX's head-major path,
+    the int8 + ``int8_kv`` tables (card_tables_int8_kv.json, from both
+    kernels recorded there) against JAX on its TPU kernel path. For each
+    window whose beam-4 tokens differ: the first differing position, both
+    picks, and the card's top-2 logit margin of the prediction there."""
+    params, cfg = jax_load(BASE)
+    with open(CARD_TABLES) as f:
+        card_records_report("bf16", json.load(f), JaxSegmenter(params, cfg),
+                            jax_head_major, False)
+    with open(CARD_TABLES_INT8_KV) as f:
+        card = json.load(f)
+    jseg = JaxSegmenter(params, cfg, inference_dtype="int8")
+    card_records_report("int8 + int8_kv", card, jseg, jax_kernel_path, True)
+    card_records_report("int8 + int8_kv, first version of the kernel",
+                        card["first_version_kernel"], jseg, jax_kernel_path, True)
+
+
+def card_records_report(label, card, jseg, jax_path, int8_kv) -> None:
     from whisperseg_tpu import tokenizer as jtok
 
-    params, cfg = jax_load(BASE)
-    jseg = JaxSegmenter(params, cfg)
     dsc = jseg.default_segmentation_config
     frontend = JaxFrontend(32000, dsc["spec_time_step"], dsc["min_frequency"])
-    with open(CARD_TABLES) as f:
-        card = json.load(f)
     for rec, toks in zip(card["tables"], card["tokens"]):
         seed, duration, trials = rec["request"]
         audio = tone_bursts(seed, duration=duration)
         clips, _ = jseg.slice_audio_windows(audio, 32000, dsc["spec_time_step"],
                                             trials)
-        with jax_head_major():
-            hm = jseg._generate_tokens(clips, frontend, 4, int(dsc["max_length"]),
-                                       4, 1, 1.0, 0, None)
-        want = segment_head_major(jseg, audio, num_trials=trials)
-        hm = [row[:row.index(jtok.EOT_ID) + 1] if jtok.EOT_ID in row else row
-              for row in hm]
-        differ = [w for w, (a, b) in enumerate(zip(toks["tokens"], hm)) if a != b]
-        print(f"request {rec['request']}: table "
-              f"{'identical' if json.loads(json.dumps(want)) == rec['table'] else 'DIFFERS'}"
-              f"; {len(differ)} of {len(hm)} windows' tokens differ", flush=True)
+        with jax_path(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = jseg._generate_tokens(clips, frontend, 4, int(dsc["max_length"]),
+                                        4, 1, 1.0, 0, None, int8_kv=int8_kv)
+            want = jseg.segment(audio, 32000, num_trials=trials, int8_kv=int8_kv)
+        ref = [row[:row.index(jtok.EOT_ID) + 1] if jtok.EOT_ID in row else row
+               for row in ref]
+        differ = [w for w, (a, b) in enumerate(zip(toks["tokens"], ref)) if a != b]
+        same = json.loads(json.dumps(want)) == rec["table"]
+        print(f"{label}, request {rec['request']}: table "
+              f"{'identical' if same else 'DIFFERS'} ({len(rec['table']['onset'])} "
+              f"segments on the card, {len(want['onset'])} in JAX); {len(differ)} of "
+              f"{len(ref)} windows' tokens differ", flush=True)
         for w in differ:
-            a, b = toks["tokens"][w], hm[w]
+            a, b = toks["tokens"][w], ref[w]
             t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                      min(len(a), len(b)))
             pick = lambda row: row[t] if t < len(row) else None  # noqa: E731

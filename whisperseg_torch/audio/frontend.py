@@ -8,7 +8,8 @@ per-clip ``max - 8`` floor and ``(x + 4) / 4`` scaling.
   * :meth:`Frontend.log_mel_numpy` - the float64 numpy oracle.
   * :meth:`Frontend.log_mel_batch` - the batched float32 path: framing as a
     strided view, ``torch.fft.rfft``, then the fused power -> mel -> log10
-    kernel (ops/logmel.py) reading the FFT output in place.
+    kernel (ops/logmel.py) reading the FFT output in place and summing each
+    mel column over its band of bins.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import NUM_MEL_BINS, n_fft_for_sr
-from ..ops.logmel import melproject_reim
+from ..ops.logmel import mel_bands, melproject_reim
 from ..runtime import resolve_device
 from .mel import mel_filter_bank
 
@@ -92,26 +93,28 @@ class Frontend:
     # ----------------------------------------------------------- torch batched
 
     def _device_tensors(self, device: torch.device):
+        """(window, mel matrix, its bands) on ``device``, made once."""
         cache = self.__dict__.setdefault("_tensors", {})
         if device not in cache:
+            mel = torch.tensor(self.mel_filters, dtype=torch.float32, device=device)
             cache[device] = (
                 torch.tensor(self.window, dtype=torch.float32, device=device),
-                torch.tensor(self.mel_filters, dtype=torch.float32, device=device),
-            )
+                mel, mel_bands(mel))
         return cache[device]
 
     def spectrum(self, clips: torch.Tensor):
         """(B, N) float32 waveforms -> the real and imaginary planes of the
         windowed STFT as [B, n_fft // 2 + 1, N // hop] views of one
-        ``torch.fft.rfft`` output (bins minor in memory), and the float32
-        mel matrix on the clips' device: the inputs of the mel kernel."""
-        window, mel = self._device_tensors(clips.device)
+        ``torch.fft.rfft`` output (bins minor in memory), the float32 mel
+        matrix and its bands on the clips' device: the inputs of the mel
+        kernel."""
+        window, mel, bands = self._device_tensors(clips.device)
         pad = self.n_fft // 2
         x = F.pad(clips[:, None, :], (pad, pad), mode="reflect")[:, 0]
         # frames as a strided view; the last one is dropped before the FFT
         frames = x.unfold(-1, self.n_fft, self.hop_length)[:, :-1] * window
         ri = torch.view_as_real(torch.fft.rfft(frames, dim=-1))  # [B, F, K, 2]
-        return ri[..., 0].transpose(1, 2), ri[..., 1].transpose(1, 2), mel
+        return ri[..., 0].transpose(1, 2), ri[..., 1].transpose(1, 2), mel, bands
 
     def log_mel_batch(self, clips: torch.Tensor) -> torch.Tensor:
         """(B, N) float32 waveforms -> (B, 80, N // hop) features, on the
