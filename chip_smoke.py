@@ -45,11 +45,23 @@ then runs, in order:
      single-token step the int8 cross-attention kernel once per layer; the
      ``int8_kv`` tables and tokens are printed as JSON lines
      (``whisperseg_torch/card_tables_int8_kv.json`` records them);
-  6. profile: the frontend of one batch at the mouse preset, then one more
+  6. service: ``BatchingSegmenter`` on the base checkpoint (bf16) warms up
+     (kernels, one seq2seq and one frame batch) and serves
+     ``services.segment_service.build_app`` on 127.0.0.1; 7 requests (seq2seq
+     of 2.5, 10 and 30 s, 3 trials on two of them, a 30 s frame-mode one, a
+     ``top_p`` one and an Adobe one) come from 4 client threads at once and
+     must get 201 and non-empty tables; a frame-mode request alone must make
+     no decoder step; ``segment(constrained=True)`` and ``segment(top_k=5,
+     seed=1)`` must each give the same well-formed table twice; over these,
+     the mel kernel must launch once per fused batch of the batcher and per
+     frame batch, the attention kernel once per encoder layer of each; then
+     the segment CLI on a 60 s recording, whole and streamed in 20 s chunks,
+     must write the same CSV bytes;
+  7. profile: the frontend of one batch at the mouse preset, then one more
      request, in bfloat16 and then in int8 with ``int8_kv``, timed stage by
      stage, then under ``torch.profiler``: the device's busy share and its
      time by kernel;
-  7. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
+  8. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
      base checkpoint at full width (bf16 compute, float32 master weights,
      AdamW, the CLI's default frame head) for 30 steps on a synthetic tone
      dataset, 3 of them profiled; every step must launch the attention
@@ -72,6 +84,7 @@ can be recorded on the same card.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -1191,6 +1204,211 @@ def report_profile(prof, wall: float, what: str, groups: dict) -> dict:
     return {"busy": busy_us / 1e3, **{g: t / 1e3 for g, (t, _) in by_group.items()}}
 
 
+# ------------------------------------------------------------------ service
+
+# (service) each request: a name, its audio as (seed, seconds) of
+# ``tone_bursts``, and the body's options; sent by SERVICE_CLIENTS client
+# threads at once. The audio is that of the serve phase's requests, whose
+# tables are not empty in the JAX package's bf16 numerics either (the base
+# model finds nothing on some other seeds' 2.5 s clips, in both packages).
+SERVICE_REQUESTS = [
+    ("seq2seq 10 s, 3 trials (a)", (106, 10.0), {"num_trials": 3}),
+    ("seq2seq 10 s, 3 trials (b)", (106, 10.0), {"num_trials": 3}),
+    ("seq2seq 30 s", (101, 30.0), {"num_trials": 1}),
+    ("seq2seq 2.5 s", (100, 2.5), {"num_trials": 1}),
+    ("frame mode 30 s", (101, 30.0), {"frame_mode": True}),
+    ("top_p 0.9, greedy 10 s", (106, 10.0), {"num_trials": 1, "num_beams": 1,
+                                             "top_p": 0.9}),
+    ("Adobe 10 s", (106, 10.0), {"num_trials": 1,
+                                 "adobe_audition_compatible": True}),
+]
+SERVICE_CLIENTS = 4
+SERVICE_BATCH = 8       # the service's --batch_size default
+
+
+def _wav_base64(audio) -> str:
+    import base64
+    import io
+
+    from whisperseg_torch.audio.io import save_wav
+
+    buf = io.BytesIO()
+    save_wav(buf, audio, SR)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _post(port: int, body: dict):
+    """One request through the standard library's HTTP client -> (status,
+    answer, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/segment", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        answer = json.loads(resp.read())
+    finally:
+        conn.close()
+    return resp.status, answer, time.perf_counter() - t0
+
+
+def _check_table(table: dict, duration: float, what: str) -> None:
+    """Non-empty, each segment inside the audio with onset < offset, in
+    onset order."""
+    onsets, offsets = table["onset"], table["offset"]
+    if not onsets:
+        raise AssertionError(f"{what}: empty segment table")
+    if not (len(onsets) == len(offsets) == len(table["cluster"])
+            and all(0 <= a < b <= duration + 1e-6
+                    for a, b in zip(onsets, offsets))
+            and onsets == sorted(onsets)):
+        raise AssertionError(f"{what}: malformed table {table}")
+
+
+def service_phase(device) -> dict:
+    """The HTTP segment service with its continuous batcher on the base
+    checkpoint (bf16): warm-up, concurrent requests of every kind, launch
+    counts checked against the batcher's fused batches and the frame
+    batches, a frame-mode request with no decoder step, sampled and
+    constrained decoding twice each, and the segment CLI with and without
+    streaming giving identical CSV bytes. Returns the launch counts."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from whisperseg_torch import decode
+    from whisperseg_torch.cli import segment as cli
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.services.batching import BatchingSegmenter
+    from whisperseg_torch.services.segment_service import build_app
+    from whisperseg_torch.synthetic import tone_bursts
+
+    start = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    base = os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad")
+    seg = BatchingSegmenter.from_pretrained(base, device=device)
+    seg.max_batch_size = SERVICE_BATCH
+    t0 = time.perf_counter()
+    seg.warmup(SR, batch_size=SERVICE_BATCH)
+    torch.cuda.synchronize()
+    print(f"  warm-up (kernels built or found, one seq2seq and one frame "
+          f"batch) {time.perf_counter() - t0:.3f} s", flush=True)
+    app = build_app(seg, SERVICE_BATCH, serialize=False)
+    port = app.serve("127.0.0.1", 0, background=True).server_address[1]
+    cfg = seg.config
+    clip_samples = int(seg.total_spec_columns * SPEC_TIME_STEP * SR)
+
+    def frame_batches_of(duration):  # frame_probs: one trial of windows
+        windows = -(-int(duration * SR) // clip_samples)
+        return -(-windows // SERVICE_BATCH)
+    try:
+        bodies = []
+        for name, (seed, duration), options in SERVICE_REQUESTS:
+            bodies.append({"audio_file_base64_string": _wav_base64(
+                tone_bursts(seed, duration=duration)), "sr": SR, **options})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logmel.launches = attention.launches = 0
+        fused = seg.fused_batches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVICE_CLIENTS) as pool:
+            answers = list(pool.map(lambda b: _post(port, b), bodies))
+        wall = time.perf_counter() - t0
+        frame_batches = 0
+        for (name, (_, duration), options), (status, answer, dt) in zip(
+                SERVICE_REQUESTS, answers):
+            print(f"  request {name}: {status} in {dt:.3f} s "
+                  f"({duration / dt:.1f} audio-s/s), "
+                  f"{len(answer.get('Start', answer.get('onset', [])))} "
+                  f"segments", flush=True)
+            if status != 201:
+                raise AssertionError(f"{name}: status {status}")
+            if options.get("adobe_audition_compatible"):
+                if not answer["Start"]:
+                    raise AssertionError(f"{name}: empty cue table")
+            else:
+                _check_table(answer, duration, name)
+            if options.get("frame_mode"):
+                frame_batches += frame_batches_of(duration)
+        audio_s = sum(duration for _, (_, duration), _ in SERVICE_REQUESTS)
+        print(f"  {len(bodies)} requests from {SERVICE_CLIENTS} clients at "
+              f"once: {audio_s:.1f} s of audio in {wall:.3f} s "
+              f"({audio_s / wall:.1f} audio-s/s); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+
+        # a frame-mode request alone: the encoder and the frame head only
+        with StepCount(decode) as steps:
+            status, answer, dt = _post(port, bodies[4])
+        frame_batches += frame_batches_of(SERVICE_REQUESTS[4][1][1])
+        print(f"  frame mode 30 s alone: {status} in {dt:.3f} s, "
+              f"{steps.calls} decoder steps", flush=True)
+        if status != 201 or steps.calls != 0:
+            raise AssertionError(f"frame-mode request: status {status}, "
+                                 f"{steps.calls} decoder steps")
+
+        # sampling and constrained decoding through the same segmenter
+        audio = tone_bursts(106, duration=10.0)
+        for kw in (dict(constrained=True, num_beams=1),
+                   dict(top_k=5, seed=1, num_beams=1)):
+            tables = [seg.segment(audio, SR, num_trials=1, **kw)
+                      for _ in range(2)]
+            _check_table(tables[0], 10.0, f"segment({kw})")
+            if tables[0] != tables[1]:
+                raise AssertionError(f"segment({kw}) differs between runs")
+            print(f"  segment({kw}): {len(tables[0]['onset'])} segments, "
+                  f"the same twice", flush=True)
+        batches = seg.fused_batches - fused + frame_batches
+        counts = {"melproject": logmel.launches,
+                  "attention_hm": attention.launches}
+        want = {"melproject": batches,
+                "attention_hm": batches * cfg.encoder_layers}
+        print(f"  launches {counts}: {seg.fused_batches - fused} fused "
+              f"batches of the batcher, {frame_batches} frame batches",
+              flush=True)
+        if counts != want:
+            raise AssertionError(f"service launch counts {counts}, want {want}")
+    finally:
+        app.shutdown()
+        seg.close()
+
+    # the segment CLI on a 60 s recording, whole and streamed: the energy
+    # refinement needs the whole audio (streaming skips it), so the whole
+    # run turns it off
+    with tempfile.TemporaryDirectory() as tmp:
+        from whisperseg_torch.audio.io import save_wav
+
+        wav = os.path.join(tmp, "rec.wav")
+        save_wav(wav, tone_bursts(101, duration=60.0), SR)
+        argv = ["--model_path", base, "--audio_path", wav,
+                "--refine_boundaries_ms", "0"]
+        outs = {}
+        for name, extra in (("whole", []),
+                            ("streamed", ["--streaming", "1",
+                                          "--chunk_seconds", "20"])):
+            out = os.path.join(tmp, f"{name}.csv")
+            t0 = time.perf_counter()
+            cli.main(argv + extra + ["--csv_save_path", out])
+            with open(out, "rb") as f:
+                outs[name] = f.read()
+            rows = outs[name].count(b"\n") - 1
+            print(f"  segment CLI, 60 s recording, {name}: {rows} segments in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if outs["whole"] != outs["streamed"] or rows < 1:
+            raise AssertionError(f"CLI CSVs differ or are empty: {outs}")
+    # the worker held the segmenter: with it stopped, its weights and the
+    # handler threads' cuBLAS workspaces go, so that the later phases' peaks
+    # measure their own segmenters
+    del seg, app
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    print(f"  device memory allocated before the phase {held / 2**20:.1f} "
+          f"MiB, after it {torch.cuda.memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    print(f"  service phase {time.perf_counter() - start:.1f} s", flush=True)
+    return counts
+
+
 # -------------------------------------------------------------------- train
 
 TRAIN_STEPS = 30        # steps of the main training run
@@ -1481,6 +1699,10 @@ def main() -> int:
         launches.update({name: counts[name] for name in names})
         if int8_kv:  # whisperseg_torch/card_tables_int8_kv.json records them
             card_tokens(qseg, QUANT_REQUESTS, int8_kv=True)
+
+    print("[service] base checkpoint, bfloat16, the HTTP service with its "
+          "continuous batcher, and the segment CLI", flush=True)
+    service_phase(device)
 
     print("[profile] bfloat16", flush=True)
     mouse_frontend_stage(device)

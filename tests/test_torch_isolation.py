@@ -56,11 +56,68 @@ def test_no_jax_or_reference_package_import_anywhere():
             "whisperseg_torch/cli/train.py", "whisperseg_torch/data.py",
             "whisperseg_torch/audio/io.py", "whisperseg_torch/evaluate.py",
             "whisperseg_torch/scoring.py",
-            "whisperseg_torch/profiling.py"} <= scanned
+            "whisperseg_torch/profiling.py", "whisperseg_torch/hub.py",
+            "whisperseg_torch/audio/stream.py",
+            "whisperseg_torch/cli/segment.py",
+            "whisperseg_torch/services/batching.py",
+            "whisperseg_torch/services/http_util.py",
+            "whisperseg_torch/services/segment_service.py"} <= scanned
+    # neither JAX nor the JAX package, nor the packages the chip machine
+    # lacks (the JAX package's CLI and services use some of them)
+    banned = ("jax", "jaxlib", "whisperseg_tpu", "pandas", "tqdm", "requests",
+              "flask")
     for path in files:
         for mod in _imports(path):
-            top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "whisperseg_tpu"), (path, mod)
+            assert mod.split(".")[0] not in banned, (path, mod)
+
+
+def test_service_frame_mode_and_cli_without_jax(tmp_path):
+    """A CPU service request through the continuous batcher, and the segment
+    CLI in frame mode over a stream, with JAX and the packages the chip
+    machine lacks unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'pandas', 'tqdm', 'requests', 'flask'):\n"
+        "    sys.modules[m] = None\n"
+        "import base64, io, json, urllib.request\n"
+        "import torch; torch.set_num_threads(1)  # beside other test processes\n"
+        "from whisperseg_torch.audio.io import save_wav\n"
+        "from whisperseg_torch.cli import segment as cli\n"
+        "from whisperseg_torch.services.batching import BatchingSegmenter\n"
+        "from whisperseg_torch.services.segment_service import build_app\n"
+        "from whisperseg_torch.synthetic import tone_bursts\n"
+        f"seg = BatchingSegmenter.from_pretrained({TINY!r}, device='cpu')\n"
+        "audio = tone_bursts(0, duration=2.5)\n"
+        "buf = io.BytesIO(); save_wav(buf, audio, 32000)\n"
+        "app = build_app(seg, batch_size=4, serialize=False)\n"
+        "httpd = app.serve('127.0.0.1', 0, background=True)\n"
+        "body = json.dumps({'audio_file_base64_string':\n"
+        "    base64.b64encode(buf.getvalue()).decode(), 'sr': 32000,\n"
+        "    'num_trials': 1, 'num_beams': 1}).encode()\n"
+        "req = urllib.request.Request(\n"
+        "    f'http://127.0.0.1:{httpd.server_address[1]}/segment', data=body)\n"
+        "with urllib.request.urlopen(req, timeout=120) as resp:\n"
+        "    assert resp.status == 201\n"
+        "    table = json.loads(resp.read())\n"
+        "app.shutdown()\n"
+        "seg.close()\n"
+        "assert table['onset'] and seg.fused_batches == 1, table\n"
+        f"save_wav({str(tmp_path / 'a.wav')!r}, audio, 32000)\n"
+        f"cli.main(['--model_path', {TINY!r}, '--device', 'cpu',\n"
+        f"          '--audio_path', {str(tmp_path / 'a.wav')!r},\n"
+        f"          '--frame_mode', '1', '--streaming', '1',\n"
+        f"          '--batch_size', '1',\n"
+        f"          '--csv_save_path', {str(tmp_path / 'a.csv')!r}])\n"
+        "assert not any(m == 'whisperseg_tpu' or m.startswith('whisperseg_tpu.')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    with open(tmp_path / "a.csv") as f:
+        assert f.readline() == "onset,offset,cluster\n"
+        assert f.readline()
 
 
 def test_entry_points_without_device_need_cuda(monkeypatch):

@@ -364,12 +364,15 @@ def test_golden_file_is_the_jax_packages_output(segmenters):
     assert len(golden["table"]["onset"]) >= 3
 
 
-def test_out_of_slice_options_raise(segmenters):
+def test_out_of_slice_options_raise(segmenters, tmp_path):
     seg = segmenters[1]
     audio = np.zeros(8000, np.float32)
+    # sampling and constrained decoding are in the port now
     for kw in (dict(top_k=2), dict(top_p=0.5), dict(constrained=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            seg.segment(audio, 32000, **kw)
+        assert set(seg.segment(audio, 32000, num_beams=1, **kw)) == {
+            "onset", "offset", "cluster"}
+    with pytest.raises(NotImplementedError, match="HF"):
+        Segmenter.from_pretrained(str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="speculative"):
         seg.set_draft_model(TINY)
     params, cfg = load_checkpoint(TINY)

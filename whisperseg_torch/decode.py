@@ -1,18 +1,30 @@
-"""Batched autoregressive generation: greedy search and banked beam search.
+"""Batched autoregressive generation: greedy search, sampling, constrained
+decoding and banked beam search.
 
 The port of ``whisperseg_tpu/decode.py`` (``generate``, ``_generate_greedy``,
-``_generate_beam``). JAX's ``lax.while_loop`` becomes a Python loop that
-exits early; its condition is read on the host once per step.
+``_generate_beam``, the grammar and the samplers). JAX's ``lax.while_loop``
+becomes a Python loop that exits early; its condition is read on the host once
+per step.
+
+Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
+``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
+standard Gumbel noise, drawn once per step from a ``noise`` callable (by
+default from a ``torch.Generator``; tests pass the noise JAX draws).
+``constrained=True`` masks the tokens the transcript grammar forbids at each
+step, so every transcript parses.
 
 Beam search is the static banked formulation: each step takes the top-2K
 candidates, finished (EOT) candidates move to a per-sequence bank of the K
 best hypotheses by ``score / length**length_penalty``, and the K live slots
 keep exploring unfinished continuations. The result is the best of the bank
-and the length-penalised live set. Every top-k breaks ties toward the lower
-index, as ``lax.top_k`` does (``torch.topk`` promises no order).
+and the length-penalised live set. It ignores ``top_k``, ``top_p`` and
+``constrained``, as the JAX package's does. Every top-k breaks ties toward
+the lower index, as ``lax.top_k`` does (``torch.topk`` promises no order).
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
@@ -23,34 +35,130 @@ from .models.whisper import (decoder_step, encoder_forward, init_cache,
 
 NEG_INF = -1e30
 
+# Gumbel noise of a given shape on a given device, one call per decode step
+Noise = Callable[[tuple, torch.device], torch.Tensor]
 
-def check_decode_options(top_k: int, top_p: float, constrained: bool
-                         ) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP.md item that will
-    bring it, for a decoding option this port does not have yet."""
-    if top_k > 1 or top_p < 1.0:
-        raise NotImplementedError(
-            "sampling (top_k > 1 or top_p < 1) is not ported yet: ROADMAP.md "
-            "Queue A item 8 (sampling and constrained decoding)")
-    if constrained:
-        raise NotImplementedError(
-            "constrained decoding is not ported yet: ROADMAP.md Queue A item 8 "
-            "(sampling and constrained decoding)")
+# ------------------------------------------------------------ grammar constraint
+#
+# The transcript grammar is  species? (ts_open digit+ ts_close)* EOT  with
+# non-decreasing timestamps. State per sequence: mode in {0: start (species |
+# ts | EOT), 1: after ts_open (digits only), 2: in digits (digits | ts > open),
+# 3: after ts_close (ts >= close | EOT)}, and the last timestamp column.
+
+_TS0 = tok.TIMESTAMP_BASE
+_TS1 = tok.TIMESTAMP_BASE + tok.NUM_TIMESTAMPS
+
+
+def _is_digit(ids: torch.Tensor, n_extra: int) -> torch.Tensor:
+    """Digits 0-9 and the ``n_extra`` extended tokens (ids >= VOCAB_SIZE,
+    imported multi-digit cluster pieces) are digit-class."""
+    return (((ids >= 0) & (ids < 10))
+            | ((ids >= tok.VOCAB_SIZE) & (ids < tok.VOCAB_SIZE + n_extra)))
+
+
+def _grammar_mask(mode: torch.Tensor, last_col: torch.Tensor, vocab: int,
+                  n_extra: int = 0) -> torch.Tensor:
+    """mode [B], last_col [B] -> allowed-token bool mask [B, V]. Vocabulary
+    padding rows beyond the extended tokens stay disallowed."""
+    ids = torch.arange(vocab, device=mode.device)
+    is_digit = _is_digit(ids, n_extra)
+    is_ts = (ids >= _TS0) & (ids < _TS1)
+    is_species = (ids >= tok.SPECIES_BASE) & (
+        ids < tok.SPECIES_BASE + len(tok.SPECIES_TOKEN_IDS))
+    is_eot = ids == tok.EOT_ID
+
+    first_ok = (_TS0 + last_col)[:, None]
+    ts_geq = is_ts & (ids[None, :] >= first_ok)
+    # closing a span needs a strictly later column (a zero-length segment
+    # would be dropped by the parser); re-opening after a close may abut
+    ts_gt = is_ts & (ids[None, :] > first_ok)
+
+    m0 = (is_species | is_ts | is_eot)[None, :]
+    m1 = is_digit[None, :]
+    m2 = is_digit[None, :] | ts_gt
+    m3 = is_eot[None, :] | ts_geq
+    mode = mode[:, None]
+    return torch.where(mode == 0, m0, torch.where(
+        mode == 1, m1, torch.where(mode == 2, m2, m3)))
+
+
+def _grammar_step(mode: torch.Tensor, last_col: torch.Tensor,
+                  token: torch.Tensor, n_extra: int = 0):
+    """Advance (mode, last_col) given the emitted tokens [B]."""
+    is_digit = _is_digit(token, n_extra)
+    is_ts = (token >= _TS0) & (token < _TS1)
+    col = torch.where(is_ts, token - _TS0, last_col)
+    opens = (mode == 0) | (mode == 3)
+    new_mode = torch.where(
+        is_ts, torch.where(opens, 1, 3),            # ts opens or closes a span
+        torch.where(is_digit, 2, mode))             # digits stay in the span
+    return new_mode, col
+
+
+def _nucleus_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Mask the tokens outside the smallest set whose probability reaches
+    ``top_p`` (HF semantics: the most probable token always survives)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    sorted_p, sort_idx = _topk(probs, probs.shape[-1])
+    cum = torch.cumsum(sorted_p, dim=-1)
+    keep_sorted = (cum - sorted_p) < top_p          # mass before the token
+    keep = torch.zeros_like(keep_sorted).scatter(-1, sort_idx, keep_sorted)
+    return torch.where(keep, logits.float(), NEG_INF)
+
+
+def gumbel_noise(generator: torch.Generator) -> Noise:
+    """Standard Gumbel noise drawn from ``generator`` (which must live on the
+    device asked for), as ``jax.random.gumbel`` makes it:
+    ``-log(-log(u))`` with u uniform in [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(shape, device):
+        u = torch.rand(shape, generator=generator, device=device)
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+    return draw
+
+
+def samples(top_k: int, top_p: float) -> bool:
+    """Whether greedy decoding with these filters samples (else argmax)."""
+    return top_k > 1 or float(top_p) < 1.0
+
+
+def _sample_or_argmax(logits: torch.Tensor, top_k: int, top_p: float,
+                      noise: Optional[Noise]) -> torch.Tensor:
+    """logits [B, V] -> tokens [B]. Greedy when neither filter is active;
+    otherwise Gumbel-max over the (top_k ∩ nucleus) filtered distribution
+    (the filters compose, as in HF)."""
+    if not samples(top_k, top_p):
+        return torch.argmax(logits, dim=-1)
+    logits = logits.float()
+    if top_p < 1.0:
+        logits = _nucleus_filter(logits, top_p)
+    if top_k > 1:
+        vals, idxs = _topk(logits, top_k)
+        choice = torch.argmax(vals + noise(vals.shape, vals.device), dim=-1)
+        return torch.gather(idxs, 1, choice[:, None])[:, 0]
+    return torch.argmax(logits + noise(logits.shape, logits.device), dim=-1)
 
 
 @torch.no_grad()
 def generate(params, cfg: WhisperConfig, features=None, max_length: int = 448,
              num_beams: int = 1, top_k: int = 1, top_p: float = 1.0,
              length_penalty: float = 1.0, constrained: bool = False,
-             int8_kv: bool = False, enc_out=None) -> torch.Tensor:
+             int8_kv: bool = False, enc_out=None,
+             noise: Optional[Noise] = None) -> torch.Tensor:
     """Features [B, num_mel_bins, T] (or a ready ``enc_out`` [B, S, D]) ->
     token ids [B, max_length] (prompt included, PAD-padded). ``int8_kv``
-    keeps the cross-attention K/V in int8 (ops/cross_attention.py)."""
-    check_decode_options(top_k, top_p, constrained)
+    keeps the cross-attention K/V in int8 (ops/cross_attention.py).
+    ``noise`` gives the Gumbel noise of sampling, one call a step (default:
+    a ``torch.Generator`` seeded with 0 on the encoder output's device)."""
     if enc_out is None:
         enc_out = encoder_forward(params, cfg, features)
     if num_beams <= 1:
-        return _generate_greedy(params, cfg, enc_out, max_length, int8_kv)
+        if noise is None and samples(top_k, top_p):
+            noise = gumbel_noise(
+                torch.Generator(device=enc_out.device).manual_seed(0))
+        return _generate_greedy(params, cfg, enc_out, max_length, int8_kv,
+                                top_k, top_p, constrained, noise)
     return _generate_beam(params, cfg, enc_out, max_length, num_beams,
                           length_penalty, int8_kv)
 
@@ -60,7 +168,9 @@ def _prompt(rows: int, device) -> torch.Tensor:
 
 
 def _generate_greedy(params, cfg, enc_out, max_length: int,
-                     int8_kv: bool = False) -> torch.Tensor:
+                     int8_kv: bool = False, top_k: int = 1, top_p: float = 1.0,
+                     constrained: bool = False,
+                     noise: Optional[Noise] = None) -> torch.Tensor:
     batch, device = enc_out.shape[0], enc_out.device
     seq_len = enc_out.shape[1]
     prompt = _prompt(batch, device)
@@ -70,17 +180,27 @@ def _generate_greedy(params, cfg, enc_out, max_length: int,
     tokens = torch.full((batch, max_length), tok.PAD_ID, dtype=torch.long,
                         device=device)
     tokens[:, :pl] = prompt
+    mode = torch.zeros(batch, dtype=torch.long, device=device)
+    last_col = torch.zeros(batch, dtype=torch.long, device=device)
+    n_extra = len(cfg.extra_tokens)
+
+    def pick(logits, mode, last_col):
+        if constrained:
+            mask = _grammar_mask(mode, last_col, cfg.vocab_size, n_extra)
+            logits = torch.where(mask, logits.float(), NEG_INF)
+        nxt = _sample_or_argmax(logits, top_k, top_p, noise)
+        return (nxt, *_grammar_step(mode, last_col, nxt, n_extra))
 
     logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv,
                                   cross_seq_len=seq_len)
-    cur = torch.argmax(logits[:, -1], dim=-1)
+    cur, mode, last_col = pick(logits[:, -1], mode, last_col)
     finished = cur == tok.EOT_ID
     tokens[:, pl] = cur
     pos = pl
     while pos + 1 < max_length and not bool(finished.all()):
         logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
                                       ck, cv, cross_seq_len=seq_len)
-        cur = torch.argmax(logits[:, -1], dim=-1)
+        cur, mode, last_col = pick(logits[:, -1], mode, last_col)
         cur = torch.where(finished, tok.PAD_ID, cur)
         finished = finished | (cur == tok.EOT_ID)
         tokens[:, pos + 1] = cur

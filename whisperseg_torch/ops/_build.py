@@ -34,6 +34,9 @@ _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# held by every wrapper while it adds to its module's launch count: the
+# service's handler threads and its batcher's worker launch at the same time
+count_lock = threading.Lock()
 
 
 def _nvcc() -> str:

@@ -159,8 +159,9 @@ def fused_attention_head_major(valid_len: int, q4: torch.Tensor,
                     torch.cuda.current_stream(q4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_lse += with_lse
+    with _build.count_lock:
+        launches += 1
+        launches_lse += with_lse
     return (o, lse) if with_lse else o
 
 
@@ -259,7 +260,8 @@ def attention_hm_bwd_dkv(valid_len: int, q4, kt4, v4, do, lse, delta
     dkt, dv = torch.empty_like(kt4), torch.empty_like(v4)
     _launch_bwd("ws_attention_bwd_dkv", valid_len, q4, kt4, v4, do, lse,
                 delta, (dkt, dv))
-    launches_bwd_dkv += 1
+    with _build.count_lock:
+        launches_bwd_dkv += 1
     return dkt, dv
 
 
@@ -273,7 +275,8 @@ def attention_hm_bwd_dq(valid_len: int, q4, kt4, v4, do, lse, delta
     dq = torch.empty_like(q4)
     _launch_bwd("ws_attention_bwd_dq", valid_len, q4, kt4, v4, do, lse, delta,
                 (dq,))
-    launches_bwd_dq += 1
+    with _build.count_lock:
+        launches_bwd_dq += 1
     return dq
 
 

@@ -260,5 +260,6 @@ def cross_attention_int8(q: torch.Tensor, k_int8: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"cross_attention_int8 kernel launch failed: "
                            f"CUDA error {err}")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out

@@ -138,7 +138,8 @@ def melproject_reim(re: torch.Tensor, im: torch.Tensor, mel: torch.Tensor,
                     n_mel, torch.cuda.current_stream(re.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"melproject kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _build.count_lock:
+        launches += 1
     return out
 
 

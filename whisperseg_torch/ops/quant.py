@@ -375,7 +375,8 @@ def qdot_w8a16_kernel(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
                         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w8a16 kernel launch failed: CUDA error {err}")
-    launches_w8a16 += 1
+    with _build.count_lock:
+        launches_w8a16 += 1
     return y.reshape(*x.shape[:-1], out)
 
 
@@ -401,7 +402,8 @@ def qdot_w4a16_kernel(x: torch.Tensor, qt: Quant4Tensor) -> torch.Tensor:
                         torch.cuda.current_stream(x2.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w4a16 kernel launch failed: CUDA error {err}")
-    launches_w4a16 += 1
+    with _build.count_lock:
+        launches_w4a16 += 1
     return y.reshape(*x.shape[:-1], out)
 
 

@@ -1,6 +1,7 @@
-"""Post-processing that ``Segmenter.segment()`` runs: a copy of the parts of
-``whisperseg_tpu/refine.py`` it calls (the energy chain and the frame-head
-chain).
+"""Post-processing of the segmenter: a copy of the parts of
+``whisperseg_tpu/refine.py`` that ``Segmenter.segment()`` and the frame-VAD
+mode call (the energy chain, the frame-head chain, and
+``segments_from_tracks``).
 
 Energy-edge boundary refinement. Segment-wise F1 requires onset AND offset within a ±tolerance of ~4 columns
 (reference model.py:494-495); a from-scratch model's boundary error is far
@@ -478,3 +479,89 @@ def apply_frame_postprocess(
         prediction = refine_with_frame_tracks(prediction, tracks, time_delta,
                                               search_ms=float(frame_refine_ms))
     return prediction
+
+
+def segments_from_tracks(
+    tracks: Dict[str, np.ndarray],
+    duration: float,
+    time_delta: float,
+    inverse_codebook: Dict[int, str],
+    vocal_threshold: float = 0.5,
+    cut_threshold: float = 0.5,
+    boundary_snap: int = 2,
+    min_segment_length: float = 0.01,
+    precision_bits: int = 3,
+    gap_cut: int = 0,
+) -> Dict[str, list]:
+    """Pure tracks -> segments conversion for the frame-VAD mode
+    (``Segmenter.segment_from_frames``): threshold the vocal track into runs,
+    cut runs where both event tracks fire, snap boundaries to event peaks
+    (parabolic sub-quantum), FFT-blur correct, majority-vote the cluster.
+
+    ``gap_cut`` (quanta) generalizes the cut to short PAUSES the vocal track
+    never dips through: an offset event at ``i`` paired with the first onset
+    event in ``(i, i + gap_cut]`` splits the run into ``[a, i]`` + ``[j, b]``
+    even though the implied gap is below ``min_segment_length``'s floor —
+    the merged-adjacent-spans failure mode of densely-annotated corpora.
+    0 keeps the same-position-only cut (both events at one quantum).
+
+    Factored out of the Segmenter so that thresholds can be fitted offline
+    on tracks computed once per file.
+    """
+    vocal, onset_t, offset_t = tracks["vocal"], tracks["onset"], tracks["offset"]
+    quantum, cluster_ids = float(tracks["quantum"]), tracks["cluster"]
+    T = len(vocal)
+
+    active = vocal > vocal_threshold
+    runs = []
+    start = None
+    for i in range(T):
+        if active[i] and start is None:
+            start = i
+        elif not active[i] and start is not None:
+            runs.append((start, i))
+            start = None
+    if start is not None:
+        runs.append((start, T))
+
+    cut_runs = []
+    for a, b in runs:
+        prev = a
+        i = a + 1
+        while i < b:
+            if offset_t[i] >= cut_threshold:
+                j = next((i + g for g in range(int(gap_cut) + 1)
+                          if i + g < b and onset_t[i + g] >= cut_threshold),
+                         None)
+                if j is not None and i > prev:
+                    cut_runs.append((prev, i))
+                    prev = j
+                    i = j + 1
+                    continue
+            i += 1
+        cut_runs.append((prev, b))
+
+    onsets, offsets, clusters = [], [], []
+    for a, b in cut_runs:
+        on_pos = frame_peak_pos(onset_t, a, boundary_snap)
+        off_pos = frame_peak_pos(offset_t, b, boundary_snap)
+        on = on_pos * quantum + time_delta
+        off = off_pos * quantum - time_delta
+        if on > off:
+            mid = (on_pos + off_pos) / 2 * quantum
+            on = off = mid
+        on = float(np.clip(on, 0.0, duration))
+        off = float(np.clip(off, 0.0, duration))
+        if off - on < min_segment_length:
+            continue
+        ids = cluster_ids[a:b]
+        ids = ids[ids >= 0]
+        if len(ids):
+            cid = int(np.bincount(ids).argmax())
+            name = inverse_codebook.get(cid, "Vocal")
+        else:
+            name = "Vocal"
+        onsets.append(float(np.round(on, precision_bits)))
+        offsets.append(float(np.round(off, precision_bits)))
+        clusters.append(name)
+    return {"onset": onsets, "offset": offsets, "cluster": clusters}

@@ -14,15 +14,23 @@ package, on the card by default:
 
 ``inference_dtype="int8"`` / ``"int4"`` quantize the projection weights in
 process (ops/quant.py) and ``segment(..., int8_kv=True)`` keeps the
-cross-attention K/V in int8 (ops/cross_attention.py). Options that later
-work will bring (sampling, constrained decoding, speculative decoding,
-HF-format checkpoints) raise ``NotImplementedError`` naming their ROADMAP
-item.
+cross-attention K/V in int8 (ops/cross_attention.py). ``top_k`` / ``top_p``
+sample and ``constrained`` masks the transcript grammar (decode.py).
+
+Besides ``segment()``: ``segment_from_frames()``, the decoder-free frame-VAD
+mode (features, encoder and frame head, then ``refine.segments_from_tracks``);
+``segment_streaming()``, which reads a WAV file in chunks at bounded memory
+(audio/stream.py) and gives ``segment()``'s table; and ``warmup()``, which
+builds the kernels and runs one batch of each path before a service takes
+requests. Speculative decoding and HF-format checkpoints raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import os
+import sys
+import threading
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -36,11 +44,14 @@ from .consolidation import (consolidate_by_clustering, consolidate_by_voting,
                             merge_window_boundaries)
 from .constants import RATIO_DECODING_TIME_STEP_TO_SPEC_TIME_STEP as RATIO
 from .constants import fft_time_delta
-from .decode import check_decode_options, generate
+from .decode import generate, gumbel_noise, samples
+from .hub import download_model
 from .models.config import WhisperConfig
 from .models.whisper import encoder_forward, frame_head_forward
+from .ops import _build
 from .ops.quant import quantize_params
-from .refine import apply_frame_postprocess, apply_postprocess
+from .refine import (apply_frame_postprocess, apply_postprocess,
+                     merge_small_gaps, segments_from_tracks)
 from .runtime import resolve_device
 from .scoring import frame_score, segment_score
 
@@ -108,6 +119,28 @@ def _tracks_from_window_frames(probs: np.ndarray, cluster: np.ndarray,
             "quantum": quantum}
 
 
+def _frame_outputs(params, cfg: WhisperConfig, enc: torch.Tensor):
+    """Encoder states -> (probs [B, S, 3] float32, the vocal / onset / offset
+    sigmoids, and cluster ids [B, S] int32, -1 without a cluster channel)."""
+    logits = frame_head_forward(params, cfg, enc)
+    probs = torch.sigmoid(logits[..., :3])
+    if logits.shape[-1] > 3:
+        cl = torch.argmax(logits[..., 3:], dim=-1).to(torch.int32)
+    else:
+        cl = torch.full(logits.shape[:2], -1, dtype=torch.int32)
+    return probs, cl
+
+
+def _pad_rows(chunk: np.ndarray, rows: int) -> np.ndarray:
+    """Zero rows appended up to ``rows``: every batch of a call has one shape,
+    and padded rows step the decode loop as in the JAX package."""
+    if chunk.shape[0] >= rows:
+        return chunk
+    return np.concatenate(
+        [chunk, np.zeros((rows - chunk.shape[0],) + chunk.shape[1:],
+                         chunk.dtype)])
+
+
 class Segmenter:
     """Segmentation front door over a (params, config) pair. Every parameter
     is cast to ``inference_dtype`` (bfloat16 by default) and moved to
@@ -137,19 +170,28 @@ class Segmenter:
         self.default_segmentation_config: Dict = dict(
             config.default_segmentation_config)
         self.precision_bits = 3
+        # frame_probs runs on the caller's thread: one frame computation at a
+        # time, so that concurrent frame-mode requests do not each hold their
+        # own device batches
+        self._frame_lock = threading.Lock()
+        # the consolidation stats of each thread's last segment()
+        self._consolidation_tls = threading.local()
 
     @classmethod
     def from_pretrained(cls, model_path: str, inference_dtype: str = "bfloat16",
                         device=None) -> "Segmenter":
         """Load a checkpoint directory holding ``params.npz`` +
-        ``config.json``."""
+        ``config.json``, or a built-in or cached model by name
+        (hub.download_model)."""
         device = resolve_device(device)
-        if not os.path.exists(os.path.join(model_path, "params.npz")):
+        resolved = (model_path if os.path.isdir(model_path)
+                    else download_model(model_path))
+        if not os.path.exists(os.path.join(resolved, "params.npz")):
             raise NotImplementedError(
                 f"{model_path!r} is not a params.npz checkpoint directory; "
-                f"HF-format checkpoints and hub names are not ported yet: "
-                f"ROADMAP.md Queue A item 12 (HF import/export)")
-        params, config = load_checkpoint(model_path)
+                f"HF-format checkpoints are not ported yet: ROADMAP.md Queue A "
+                f"item 12 (HF import/export)")
+        params, config = load_checkpoint(resolved)
         return cls(params, config, inference_dtype=inference_dtype,
                    device=device)
 
@@ -217,47 +259,72 @@ class Segmenter:
 
     # --------------------------------------------------------------- generation
 
+    def _encode(self, chunk: np.ndarray, frontend: Frontend) -> torch.Tensor:
+        """Clips [B, clip_samples] -> log-mel features -> encoder states."""
+        x = torch.from_numpy(chunk).to(self.device)
+        feats = frontend.features_for_clips(x, self.total_spec_columns)
+        return encoder_forward(self.params, self.config, feats)
+
     @torch.no_grad()
+    def _decode_batch(self, chunk: np.ndarray, frontend: Frontend,
+                      max_length: int, num_beams: int, length_penalty: float,
+                      int8_kv: bool = False, top_k: int = 1,
+                      top_p: float = 1.0, constrained: bool = False,
+                      noise=None, collect_frames: bool = False):
+        """One device batch of clips [B, clip_samples]: frontend -> encoder ->
+        decode. Returns tokens [B, max_length] on the device, with
+        ``collect_frames=True`` also the frame head's (probs, cluster) from
+        the same encoder pass."""
+        cfg = self.config
+        enc = self._encode(chunk, frontend)
+        tokens = generate(self.params, cfg, max_length=max_length,
+                          num_beams=num_beams, top_k=top_k, top_p=top_p,
+                          length_penalty=length_penalty,
+                          constrained=constrained, int8_kv=int8_kv,
+                          enc_out=enc, noise=noise)
+        if collect_frames:
+            return (tokens, *_frame_outputs(self.params, cfg, enc))
+        return tokens
+
+    def _sampling_noise(self, seed: int, top_k: int, top_p: float):
+        """Gumbel noise from one generator seeded with ``seed`` on the
+        device, drawn anew for every batch and step; None when greedy."""
+        if not samples(top_k, top_p):
+            return None
+        return gumbel_noise(
+            torch.Generator(device=self.device).manual_seed(int(seed)))
+
     def _generate_tokens(self, clips: np.ndarray, frontend: Frontend,
                          batch_size: int, max_length: int, num_beams: int,
                          length_penalty: float,
                          status_monitor: Optional[dict] = None,
                          collect_frames: bool = False,
-                         int8_kv: bool = False):
+                         int8_kv: bool = False, top_k: int = 1,
+                         top_p: float = 1.0, seed: int = 0,
+                         constrained: bool = False):
         """Frontend -> encoder -> decode over fixed-size batches (the last one
-        zero-padded, so every batch has one shape and the padded rows step
-        the decode loop exactly as in the JAX package).
+        zero-padded).
 
         Returns the token lists, or with ``collect_frames=True``
         ``(token_lists, probs [N, S, 3], cluster [N, S])`` with the frame
         tracks from the same encoder pass as the decode."""
-        cfg = self.config
         n = clips.shape[0]
         out: List[List[int]] = []
         probs_parts, cl_parts = [], []
+        noise = self._sampling_noise(seed, top_k, top_p)
         for pos in range(0, n, batch_size):
             chunk = clips[pos:pos + batch_size]
             real = chunk.shape[0]
-            if real < batch_size:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((batch_size - real,) + chunk.shape[1:],
-                                     chunk.dtype)])
-            x = torch.from_numpy(chunk).to(self.device)
-            feats = frontend.features_for_clips(x, self.total_spec_columns)
-            enc = encoder_forward(self.params, cfg, feats)
-            tokens = generate(self.params, cfg, max_length=max_length,
-                              num_beams=num_beams,
-                              length_penalty=length_penalty,
-                              int8_kv=int8_kv, enc_out=enc)
+            result = self._decode_batch(
+                _pad_rows(chunk, batch_size), frontend, max_length, num_beams,
+                length_penalty, int8_kv, top_k, top_p, constrained, noise,
+                collect_frames)
             if collect_frames:
-                logits = frame_head_forward(self.params, cfg, enc)
-                probs = torch.sigmoid(logits[..., :3])
-                if logits.shape[-1] > 3:
-                    cl = torch.argmax(logits[..., 3:], dim=-1).to(torch.int32)
-                else:
-                    cl = torch.full(logits.shape[:2], -1, dtype=torch.int32)
+                tokens, probs, cl = result
                 probs_parts.append(probs[:real].cpu().numpy())
                 cl_parts.append(cl[:real].cpu().numpy())
+            else:
+                tokens = result
             out += tokens[:real].cpu().tolist()
             if status_monitor is not None:
                 status_monitor["progress"] = int(
@@ -265,6 +332,378 @@ class Segmenter:
         if collect_frames:
             return out, np.concatenate(probs_parts), np.concatenate(cl_parts)
         return out
+
+    def warmup(self, sr: int, spec_time_step: Optional[float] = None,
+               min_frequency: Optional[float] = None, batch_size: int = 8,
+               max_length: Optional[int] = None, num_beams: int = 4,
+               top_k: int = 1):
+        """Build the kernels (on the card) and run one batch of the default
+        seq2seq configuration and, with a frame head, one frame batch, so that
+        the first request pays for neither. Call at service start-up."""
+        dsc = self.default_segmentation_config
+        if spec_time_step is None:
+            spec_time_step = dsc.get("spec_time_step", 0.0025)
+        if min_frequency is None:
+            min_frequency = dsc.get("min_frequency", 0)
+        if max_length is None:
+            max_length = int(dsc.get("max_length", 448))
+        if self.device.type == "cuda":
+            _build.build_all()
+        clip_samples = int(self.total_spec_columns * spec_time_step * sr)
+        clips = np.zeros((batch_size, clip_samples), dtype=np.float32)
+        frontend = Frontend(sr, spec_time_step, min_frequency)
+        self._generate_tokens(clips, frontend, batch_size, max_length,
+                              num_beams, 1.0, top_k=top_k)
+        if "frame_head" in self.params:
+            self.frame_probs(np.zeros(clip_samples, np.float32), sr,
+                             spec_time_step=spec_time_step,
+                             min_frequency=min_frequency,
+                             batch_size=batch_size)
+
+    # --------------------------------------------------------------- frame head
+
+    @torch.no_grad()
+    def _frame_fn(self, chunk: np.ndarray, frontend: Frontend):
+        """One device batch of clips -> features -> encoder -> frame head,
+        with no decoder: (probs [B, S, 3], cluster [B, S]) as numpy."""
+        probs, cl = _frame_outputs(self.params, self.config,
+                                   self._encode(chunk, frontend))
+        return probs.cpu().numpy(), cl.cpu().numpy()
+
+    def _require_frame_head(self):
+        if "frame_head" not in self.params:
+            raise ValueError(
+                "this model has no frame head; train with --frame_head")
+
+    def frame_probs(self, audio, sr: int,
+                    spec_time_step: Optional[float] = None,
+                    min_frequency: Optional[float] = None,
+                    batch_size: int = 8) -> Dict[str, np.ndarray]:
+        """Frame-head probabilities of a whole audio on the decoder's time
+        base: ``vocal`` / ``onset`` / ``offset`` float32 [T] and ``cluster``
+        int32 [T] (-1 without a cluster channel), T = ceil(duration /
+        quantum), and the scalar ``quantum`` = ``spec_time_step * RATIO``
+        seconds. Needs a model trained with a frame head."""
+        self._require_frame_head()
+        dsc = self.default_segmentation_config
+        if min_frequency is None:
+            min_frequency = dsc.get("min_frequency", 0)
+        if spec_time_step is None:
+            spec_time_step = dsc.get("spec_time_step", 0.0025)
+        audio = np.asarray(audio, dtype=np.float32)
+        clips, _meta = self.slice_audio_windows(audio, sr, spec_time_step, 1)
+        frontend = Frontend(sr, spec_time_step, min_frequency)
+        probs_parts, cl_parts = [], []
+        with self._frame_lock:
+            for pos in range(0, clips.shape[0], batch_size):
+                chunk = clips[pos:pos + batch_size]
+                p, c = self._frame_fn(_pad_rows(chunk, batch_size), frontend)
+                probs_parts.append(p[:chunk.shape[0]])
+                cl_parts.append(c[:chunk.shape[0]])
+        return _tracks_from_window_frames(
+            np.concatenate(probs_parts), np.concatenate(cl_parts),
+            len(audio) / sr if len(audio) else 0.0, spec_time_step)
+
+    def _frame_mode_defaults(self, vocal_threshold, cut_threshold,
+                             boundary_snap, gap_cut):
+        """Explicit argument > the checkpoint's fitted value > literal."""
+        dsc = self.default_segmentation_config
+        if vocal_threshold is None:
+            vocal_threshold = dsc.get("frame_vocal_threshold", 0.5)
+        if cut_threshold is None:
+            cut_threshold = dsc.get("frame_cut_threshold", 0.5)
+        if boundary_snap is None:
+            boundary_snap = int(dsc.get("frame_boundary_snap", 2))
+        if gap_cut is None:
+            gap_cut = int(dsc.get("frame_gap_cut", 0))
+        return dict(vocal_threshold=vocal_threshold,
+                    cut_threshold=cut_threshold, boundary_snap=boundary_snap,
+                    gap_cut=gap_cut)
+
+    def segment_from_frames(self, audio, sr: int,
+                            spec_time_step: Optional[float] = None,
+                            min_frequency: Optional[float] = None,
+                            batch_size: int = 8,
+                            vocal_threshold: Optional[float] = None,
+                            cut_threshold: Optional[float] = None,
+                            boundary_snap: Optional[int] = None,
+                            min_segment_length: Optional[float] = None,
+                            gap_cut: Optional[int] = None) -> Dict[str, list]:
+        """Decoder-free segmentation from the frame head (the frame-VAD mode):
+        one encoder pass per window, then ``refine.segments_from_tracks``
+        (threshold the vocal track into runs, cut runs where both event
+        tracks fire, snap boundaries to event peaks, FFT-blur correction).
+        The thresholds default to the checkpoint's fitted
+        ``frame_vocal_threshold`` / ``frame_cut_threshold`` /
+        ``frame_boundary_snap`` / ``frame_gap_cut``, else 0.5 / 0.5 / 2 /
+        0."""
+        dsc = self.default_segmentation_config
+        if min_frequency is None:
+            min_frequency = dsc.get("min_frequency", 0)
+        if spec_time_step is None:
+            spec_time_step = dsc.get("spec_time_step", 0.0025)
+        if min_segment_length is None:
+            min_segment_length = spec_time_step * RATIO
+        knobs = self._frame_mode_defaults(vocal_threshold, cut_threshold,
+                                          boundary_snap, gap_cut)
+        tracks = self.frame_probs(audio, sr, spec_time_step=spec_time_step,
+                                  min_frequency=min_frequency,
+                                  batch_size=batch_size)
+        return segments_from_tracks(
+            tracks, len(np.asarray(audio)) / sr, fft_time_delta(sr),
+            self.inverse_cluster_codebook,
+            min_segment_length=min_segment_length,
+            precision_bits=self.precision_bits, **knobs)
+
+    # ---------------------------------------------------------------- streaming
+
+    def _stream_frame_tracks(self, stream, spec_time_step: float,
+                             min_frequency: float, batch_size: int,
+                             status_monitor: Optional[dict] = None):
+        """:meth:`frame_probs` over an AudioStream, in one pass at O(chunk)
+        memory. Returns the tracks and the stream's sample count."""
+        self._require_frame_head()
+        sr = stream.sr
+        clip_samples = int(self.total_spec_columns * spec_time_step * sr)
+        frontend = Frontend(sr, spec_time_step, min_frequency)
+        probs_parts, cl_parts = [], []
+        pend: List[np.ndarray] = []
+        total_samples = 0
+        n_windows = 0
+
+        def flush(force=False):
+            while len(pend) >= batch_size or (force and pend):
+                take = pend[:batch_size]
+                del pend[:batch_size]
+                p, c = self._frame_fn(_pad_rows(np.stack(take), batch_size),
+                                      frontend)
+                probs_parts.append(p[:len(take)])
+                cl_parts.append(c[:len(take)])
+
+        with self._frame_lock:
+            carry = np.zeros(0, np.float32)
+            for chunk in stream:
+                total_samples += len(chunk)
+                buf = np.concatenate([carry, chunk]) if len(carry) else chunk
+                nwin = len(buf) // clip_samples
+                for k in range(nwin):
+                    pend.append(buf[k * clip_samples:(k + 1) * clip_samples])
+                n_windows += nwin
+                carry = buf[nwin * clip_samples:].copy()
+                flush()
+                if status_monitor is not None and stream.duration:
+                    status_monitor["progress"] = int(np.round(min(
+                        total_samples / sr / stream.duration, 1.0) * 100))
+            if len(carry) or n_windows == 0:
+                tail = np.zeros(clip_samples, np.float32)
+                tail[:len(carry)] = carry
+                pend.append(tail)
+            flush(force=True)
+        return _tracks_from_window_frames(
+            np.concatenate(probs_parts), np.concatenate(cl_parts),
+            total_samples / sr, spec_time_step), total_samples
+
+    def segment_streaming(
+        self,
+        path: str,
+        sr: Optional[int] = None,
+        *,
+        chunk_seconds: float = 60.0,
+        channel_id: Optional[int] = None,
+        frame_mode: bool = False,
+        min_frequency: Optional[float] = None,
+        spec_time_step: Optional[float] = None,
+        min_segment_length: Optional[float] = None,
+        eps: Optional[float] = None,
+        time_per_frame_for_voting: Optional[float] = None,
+        consolidation_method: str = "clustering",
+        max_length: Optional[int] = None,
+        batch_size: int = 4,
+        num_trials: int = 1,
+        num_beams: int = 4,
+        top_k: int = 1,
+        top_p: float = 1.0,
+        length_penalty: float = 1.0,
+        status_monitor: Optional[dict] = None,
+        seed: int = 0,
+        constrained: bool = False,
+        int8_kv: bool = False,
+        vocal_threshold: Optional[float] = None,
+        cut_threshold: Optional[float] = None,
+        boundary_snap: Optional[int] = None,
+        gap_cut: Optional[int] = None,
+        merge_gap_ms: Optional[float] = None,
+        frame_split: Optional[float] = None,
+        frame_refine_ms: Optional[float] = None,
+        frame_filter: Optional[float] = None,
+    ) -> Dict[str, list]:
+        """Segment a WAV file of any length at bounded memory.
+
+        The file is read in ``chunk_seconds`` chunks (audio/stream.py, exact
+        chunked resampling), and only per-trial carry buffers of at most one
+        window each are kept, so peak memory is O(chunk + batch windows). The
+        table equals ``segment(load_audio(path))``'s for greedy and beam
+        decoding; sampling draws from ``seed`` plus the index of each flushed
+        batch. ``sr=None`` means the checkpoint's ``sr``, else the file's own.
+        ``frame_mode=True`` runs :meth:`segment_from_frames`'s path. Of the
+        post-processing, ``merge_gap_ms`` and the frame-head chain run; the
+        energy knobs (``split_merged_db`` / ``refine_boundaries_ms``) need
+        the whole audio and are skipped, with a warning when the checkpoint
+        enables them."""
+        from .audio.stream import AudioStream
+
+        dsc = self.default_segmentation_config
+        if min_frequency is None:
+            min_frequency = dsc.get("min_frequency", 0)
+        if spec_time_step is None:
+            spec_time_step = dsc.get("spec_time_step", 0.0025)
+        if min_segment_length is None:
+            min_segment_length = spec_time_step * RATIO
+        if sr is None:
+            sr = dsc.get("sr")
+
+        stream = AudioStream(path, sr=sr, chunk_seconds=chunk_seconds,
+                             channel_id=channel_id)
+        try:
+            sr = stream.sr
+            time_delta = fft_time_delta(sr)
+            if frame_mode:
+                knobs = self._frame_mode_defaults(
+                    vocal_threshold, cut_threshold, boundary_snap, gap_cut)
+                tracks, total_samples = self._stream_frame_tracks(
+                    stream, spec_time_step, min_frequency, batch_size,
+                    status_monitor)
+                return segments_from_tracks(
+                    tracks, total_samples / sr, time_delta,
+                    self.inverse_cluster_codebook,
+                    min_segment_length=min_segment_length,
+                    precision_bits=self.precision_bits, **knobs)
+
+            if merge_gap_ms is None:
+                merge_gap_ms = dsc.get("merge_gap_ms", 0)
+            if frame_split is None:
+                frame_split = dsc.get("frame_split", 0)
+            if frame_refine_ms is None:
+                frame_refine_ms = dsc.get("frame_refine_ms", 0)
+            if frame_filter is None:
+                frame_filter = dsc.get("frame_filter", 0)
+            if eps is None:
+                eps = spec_time_step * RATIO * 4
+            if time_per_frame_for_voting is None:
+                time_per_frame_for_voting = spec_time_step
+            if max_length is None:
+                max_length = int(dsc.get("max_length", 448))
+            if dsc.get("split_merged_db") or dsc.get("refine_boundaries_ms"):
+                print("Warning: the checkpoint's fitted split_merged_db/"
+                      "refine_boundaries_ms post-processing needs random access "
+                      "to the raw audio and is skipped in streaming mode; use "
+                      "segment() if it matters more than memory.",
+                      file=sys.stderr)
+
+            clip_duration = self.total_spec_columns * spec_time_step
+            clip_samples = int(clip_duration * sr)
+            frontend = Frontend(sr, spec_time_step, min_frequency)
+
+            # per-trial carry buffers, seeded with the trial's shifted zero
+            # left-pad: the streaming counterpart of slice_audio_windows, with
+            # the same windows and meta
+            pad_time, carries, win_count = [], [], []
+            for trial_id in range(num_trials):
+                p = (np.round(clip_duration * trial_id / num_trials
+                              / spec_time_step) * spec_time_step)
+                pad_time.append(p)
+                carries.append(np.zeros(int(p * sr), np.float32))
+                win_count.append(0)
+
+            token_lists: List[List[int]] = []
+            meta: List[Tuple[int, float, float]] = []
+            pend_clips: List[np.ndarray] = []
+            pend_meta: List[Tuple[int, float, float]] = []
+            total_samples = 0
+            flush_idx = 0
+            # the fitted frame post-processing takes its tracks from the
+            # decode pass's own encoder run over the trial-0 windows
+            need_frames = bool((frame_split or frame_refine_ms or frame_filter)
+                               and "frame_head" in self.params)
+            probs0_parts: List[np.ndarray] = []
+            cl0_parts: List[np.ndarray] = []
+
+            def flush(force=False):
+                nonlocal flush_idx
+                while len(pend_clips) >= batch_size or (force and pend_clips):
+                    take = pend_clips[:batch_size]
+                    del pend_clips[:batch_size]
+                    gen = self._generate_tokens(
+                        np.stack(take), frontend, batch_size, max_length,
+                        num_beams, length_penalty, collect_frames=need_frames,
+                        int8_kv=int8_kv, top_k=top_k, top_p=top_p,
+                        seed=seed + flush_idx, constrained=constrained)
+                    take_meta = pend_meta[:len(take)]
+                    if need_frames:
+                        tokens, probs, cl = gen
+                        # trial-0 rows arrive in time order across flushes
+                        rows = [i for i, m in enumerate(take_meta)
+                                if m[0] == 0]
+                        if rows:
+                            probs0_parts.append(probs[rows])
+                            cl0_parts.append(cl[rows])
+                    else:
+                        tokens = gen
+                    token_lists.extend(tokens)
+                    meta.extend(take_meta)
+                    del pend_meta[:len(take)]
+                    flush_idx += 1
+
+            for chunk in stream:
+                total_samples += len(chunk)
+                for t in range(num_trials):
+                    buf = (np.concatenate([carries[t], chunk])
+                           if len(carries[t]) else chunk)
+                    nwin = len(buf) // clip_samples
+                    for k in range(nwin):
+                        pend_clips.append(
+                            buf[k * clip_samples:(k + 1) * clip_samples])
+                        pend_meta.append(
+                            (t, win_count[t] * clip_samples / sr - pad_time[t],
+                             clip_samples / sr))
+                        win_count[t] += 1
+                    carries[t] = buf[nwin * clip_samples:].copy()
+                flush()
+                if status_monitor is not None and stream.duration:
+                    status_monitor["progress"] = int(np.round(min(
+                        total_samples / sr / stream.duration, 1.0) * 100))
+
+            # each trial's trailing partial window; a trial with no window at
+            # all (empty audio) still gets one
+            for t in range(num_trials):
+                if len(carries[t]) or win_count[t] == 0:
+                    tail = np.zeros(clip_samples, np.float32)
+                    tail[:len(carries[t])] = carries[t]
+                    pend_clips.append(tail)
+                    pend_meta.append(
+                        (t, win_count[t] * clip_samples / sr - pad_time[t],
+                         len(carries[t]) / sr))
+            flush(force=True)
+
+            audio_duration = total_samples / sr
+            final = self._parse_generation(
+                token_lists, meta, min_segment_length, audio_duration,
+                spec_time_step, num_trials, eps, time_per_frame_for_voting,
+                consolidation_method)
+            final = _blur_correct_and_dedup(final, time_delta)
+            if merge_gap_ms:
+                final = merge_small_gaps(final, gap_s=merge_gap_ms / 1000.0)
+            if need_frames:
+                tracks = _tracks_from_window_frames(
+                    np.concatenate(probs0_parts), np.concatenate(cl0_parts),
+                    audio_duration, spec_time_step)
+                final = apply_frame_postprocess(
+                    final, tracks, time_delta, frame_split=frame_split,
+                    frame_refine_ms=frame_refine_ms, frame_filter=frame_filter,
+                    min_len_s=min_segment_length)
+            return _round_and_rededup(final, self.precision_bits)
+        finally:
+            stream.close()
 
     # ------------------------------------------------------------------ parsing
 
@@ -305,6 +744,8 @@ class Segmenter:
                 "cluster": [s[2] for s in merged],
             })
 
+        tls = self._consolidation_tls
+        tls.stats = None
         if num_trials == 1:
             final = trials_results[0]
         elif consolidation_method == "clustering":
@@ -312,13 +753,16 @@ class Segmenter:
             stats = {}
             final = consolidate_by_clustering(trials_results, eps, min_samples,
                                               stats=stats)
-            noise = (stats["n_noise"] / stats["n_input"]
-                     if stats["n_input"] else 0.0)
-            if stats["n_input"] >= 2 * num_trials and noise > 0.5:
+            stats["noise_fraction"] = (stats["n_noise"] / stats["n_input"]
+                                       if stats["n_input"] else 0.0)
+            stats["low_agreement"] = (stats["n_input"] >= 2 * num_trials
+                                      and stats["noise_fraction"] > 0.5)
+            tls.stats = stats
+            if stats["low_agreement"]:
                 warnings.warn(
                     f"multi-trial consolidation discarded "
                     f"{stats['n_noise']}/{stats['n_input']} segments "
-                    f"({noise:.0%}) as cross-trial "
+                    f"({stats['noise_fraction']:.0%}) as cross-trial "
                     f"disagreement — the model's predictions are unstable "
                     f"under window shifts; num_trials=1 will likely have "
                     f"much better recall", stacklevel=2)
@@ -333,6 +777,15 @@ class Segmenter:
         return final
 
     # --------------------------------------------------------------- public API
+
+    @property
+    def last_consolidation_stats(self) -> Optional[dict]:
+        """Cross-trial agreement stats of this thread's last ``segment()``
+        with ``num_trials > 1`` and clustering consolidation (None
+        otherwise): ``n_input`` / ``n_noise`` / ``n_clusters`` /
+        ``noise_fraction`` / ``low_agreement``. Thread-local, so concurrent
+        service requests each read their own."""
+        return getattr(self._consolidation_tls, "stats", None)
 
     def segment(
         self,
@@ -364,9 +817,9 @@ class Segmenter:
     ) -> Dict[str, list]:
         """Segment one audio array -> {"onset": [...], "offset": [...],
         "cluster": [...]}. Defaults: explicit argument > the checkpoint's
-        default_segmentation_config > literal. ``seed`` only matters to
-        sampling, which is not ported yet."""
-        check_decode_options(top_k, top_p, constrained)
+        default_segmentation_config > literal. ``top_k`` / ``top_p`` sample
+        (greedy path, ``num_beams=1``) from a generator seeded with ``seed``;
+        ``constrained`` masks the transcript grammar."""
         dsc = self.default_segmentation_config
         if min_frequency is None:
             min_frequency = dsc.get("min_frequency", 0)
@@ -402,7 +855,8 @@ class Segmenter:
         gen = self._generate_tokens(clips, frontend, batch_size, max_length,
                                     num_beams, length_penalty, status_monitor,
                                     collect_frames=need_frames,
-                                    int8_kv=int8_kv)
+                                    int8_kv=int8_kv, top_k=top_k, top_p=top_p,
+                                    seed=seed, constrained=constrained)
         if need_frames:
             token_lists, all_probs, all_cl = gen
             n0 = sum(1 for m in meta if m[0] == 0)  # trial-0 window count
