@@ -48,20 +48,36 @@ then runs, in order:
   6. service: ``BatchingSegmenter`` on the base checkpoint (bf16) warms up
      (kernels, one seq2seq and one frame batch) and serves
      ``services.segment_service.build_app`` on 127.0.0.1; 7 requests (seq2seq
-     of 2.5, 10 and 30 s, 3 trials on two of them, a 30 s frame-mode one, a
-     ``top_p`` one and an Adobe one) come from 4 client threads at once and
-     must get 201 and non-empty tables; a frame-mode request alone must make
-     no decoder step; ``segment(constrained=True)`` and ``segment(top_k=5,
-     seed=1)`` must each give the same well-formed table twice; over these,
-     the mel kernel must launch once per fused batch of the batcher and per
-     frame batch, the attention kernel once per encoder layer of each; then
-     the segment CLI on a 60 s recording, whole and streamed in 20 s chunks,
+     of 2.5, 10 and 30 s, two identical default ones of 3 trials, two with
+     the frame post-processing off, a 30 s frame-mode one, a ``top_p`` one
+     and an Adobe one) come from 4 client threads at once and must get 201
+     and non-empty tables, the two identical ones identical tables; a
+     frame-mode request alone must make no decoder step;
+     ``segment(constrained=True)`` and ``segment(top_k=5, seed=1)`` must
+     each give the same well-formed table twice; over these, the mel kernel
+     must launch once per batch (fused by the batcher's worker, run on a
+     handler's thread for a request that needs the frame tracks, or a frame
+     batch), the attention kernel once per encoder layer of each; then the
+     segment CLI on a 60 s recording, whole and streamed in 20 s chunks,
      must write the same CSV bytes;
-  7. profile: the frontend of one batch at the mouse preset, then one more
+  7. backend: the model-zoo backend on 127.0.0.1 with the base checkpoint
+     as a built-in model (bf16) and its training worker running: a 10 s
+     recording as WAV and as FLAC must get 200 and identical tables, equal
+     to ``segment()`` on the decoded samples; frame mode on the FLAC and a
+     crafted MP3 must get 200; the mel kernel must launch once a batch and
+     the attention kernel once an encoder layer a batch; then a fine-tune
+     submitted through the client (three FLAC recordings with CSV labels)
+     runs in the worker's subprocess on the card, capped at 30 iterations:
+     it must exit 0, launch the attention kernel (with the row log-sum-exp)
+     and both backward kernels once an encoder layer a step, and its model
+     must be listed ready and answer ``/segment``; latencies, the
+     fine-tune's wall time, iterations and exit code, beside the card's
+     name and power limit;
+  8. profile: the frontend of one batch at the mouse preset, then one more
      request, in bfloat16 and then in int8 with ``int8_kv``, timed stage by
      stage, then under ``torch.profiler``: the device's busy share and its
      time by kernel;
-  8. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
+  9. train: ``python -m whisperseg_torch.cli.train``'s ``main`` trains the
      base checkpoint at full width (bf16 compute, float32 master weights,
      AdamW, the CLI's default frame head) for 30 steps on a synthetic tone
      dataset, 3 of them profiled; every step must launch the attention
@@ -1211,11 +1227,17 @@ def report_profile(prof, wall: float, what: str, groups: dict) -> dict:
 # threads at once. The audio is that of the serve phase's requests, whose
 # tables are not empty in the JAX package's bf16 numerics either (the base
 # model finds nothing on some other seeds' 2.5 s clips, in both packages).
+# A request that needs the frame head's tracks (the shipped checkpoint's
+# fitted frame post-processing, on by default) runs on its handler's thread;
+# the batcher fuses the others, here those with that post-processing off.
+NO_FRAME_POST = {"frame_split": 0, "frame_refine_ms": 0, "frame_filter": 0}
 SERVICE_REQUESTS = [
     ("seq2seq 10 s, 3 trials (a)", (106, 10.0), {"num_trials": 3}),
     ("seq2seq 10 s, 3 trials (b)", (106, 10.0), {"num_trials": 3}),
-    ("seq2seq 30 s", (101, 30.0), {"num_trials": 1}),
-    ("seq2seq 2.5 s", (100, 2.5), {"num_trials": 1}),
+    ("seq2seq 30 s, no frame post-processing", (101, 30.0),
+     {"num_trials": 1, **NO_FRAME_POST}),
+    ("seq2seq 2.5 s, no frame post-processing", (100, 2.5),
+     {"num_trials": 1, **NO_FRAME_POST}),
     ("frame mode 30 s", (101, 30.0), {"frame_mode": True}),
     ("top_p 0.9, greedy 10 s", (106, 10.0), {"num_trials": 1, "num_beams": 1,
                                              "top_p": 0.9}),
@@ -1254,26 +1276,70 @@ def _post(port: int, body: dict):
     return resp.status, answer, time.perf_counter() - t0
 
 
-def _check_table(table: dict, duration: float, what: str) -> None:
+def _check_table(table: dict, duration: float, what: str,
+                 collapsed: bool = False) -> None:
     """Non-empty, each segment inside the audio with onset < offset, in
-    onset order."""
+    onset order. ``collapsed`` admits onset = offset: the FFT-blur
+    correction collapses a segment shorter than twice its delta to its
+    midpoint (the JAX package's and the reference's rule), and with the
+    frame post-processing off nothing drops it."""
     onsets, offsets = table["onset"], table["offset"]
     if not onsets:
         raise AssertionError(f"{what}: empty segment table")
     if not (len(onsets) == len(offsets) == len(table["cluster"])
-            and all(0 <= a < b <= duration + 1e-6
+            and all(0 <= a <= b <= duration + 1e-6 and (collapsed or a < b)
                     for a, b in zip(onsets, offsets))
             and onsets == sorted(onsets)):
         raise AssertionError(f"{what}: malformed table {table}")
 
 
+class BatchCount:
+    """Counts a segmenter's device batches while it is entered: seq2seq
+    batches (``_decode_batch``) on the batcher's worker thread (``fused``)
+    and on any other thread (``caller``), and frame-mode batches
+    (``_frame_fn``, ``frames``)."""
+
+    def __init__(self, seg):
+        self.seg = seg
+        self.fused = self.caller = self.frames = 0
+
+    def __enter__(self):
+        import threading
+
+        decode_batch, frame_fn = self.seg._decode_batch, self.seg._frame_fn
+        worker = getattr(self.seg, "_worker", None)
+
+        def counted_decode_batch(*args, **kwargs):
+            if threading.current_thread() is worker:
+                self.fused += 1
+            else:
+                self.caller += 1
+            return decode_batch(*args, **kwargs)
+
+        def counted_frame_fn(*args, **kwargs):
+            self.frames += 1
+            return frame_fn(*args, **kwargs)
+        self.seg._decode_batch = counted_decode_batch
+        self.seg._frame_fn = counted_frame_fn
+        return self
+
+    def __exit__(self, *exc):
+        del self.seg._decode_batch, self.seg._frame_fn
+
+    @property
+    def batches(self) -> int:
+        return self.fused + self.caller + self.frames
+
+
 def service_phase(device) -> dict:
     """The HTTP segment service with its continuous batcher on the base
-    checkpoint (bf16): warm-up, concurrent requests of every kind, launch
-    counts checked against the batcher's fused batches and the frame
-    batches, a frame-mode request with no decoder step, sampled and
-    constrained decoding twice each, and the segment CLI with and without
-    streaming giving identical CSV bytes. Returns the launch counts."""
+    checkpoint (bf16): warm-up, concurrent requests of every kind (two
+    identical default ones must get identical tables), launch counts
+    checked against the batcher's fused batches, the batches run on the
+    handlers' threads and the frame batches, a frame-mode request with no
+    decoder step, sampled and constrained decoding twice each, and the
+    segment CLI with and without streaming giving identical CSV bytes.
+    Returns the launch counts."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1297,11 +1363,7 @@ def service_phase(device) -> dict:
     app = build_app(seg, SERVICE_BATCH, serialize=False)
     port = app.serve("127.0.0.1", 0, background=True).server_address[1]
     cfg = seg.config
-    clip_samples = int(seg.total_spec_columns * SPEC_TIME_STEP * SR)
-
-    def frame_batches_of(duration):  # frame_probs: one trial of windows
-        windows = -(-int(duration * SR) // clip_samples)
-        return -(-windows // SERVICE_BATCH)
+    count = BatchCount(seg).__enter__()
     try:
         bodies = []
         for name, (seed, duration), options in SERVICE_REQUESTS:
@@ -1315,7 +1377,6 @@ def service_phase(device) -> dict:
         with ThreadPoolExecutor(SERVICE_CLIENTS) as pool:
             answers = list(pool.map(lambda b: _post(port, b), bodies))
         wall = time.perf_counter() - t0
-        frame_batches = 0
         for (name, (_, duration), options), (status, answer, dt) in zip(
                 SERVICE_REQUESTS, answers):
             print(f"  request {name}: {status} in {dt:.3f} s "
@@ -1328,9 +1389,14 @@ def service_phase(device) -> dict:
                 if not answer["Start"]:
                     raise AssertionError(f"{name}: empty cue table")
             else:
-                _check_table(answer, duration, name)
-            if options.get("frame_mode"):
-                frame_batches += frame_batches_of(duration)
+                _check_table(answer, duration, name,
+                             collapsed=options.get("frame_filter") == 0)
+        if answers[0][1] != answers[1][1]:
+            raise AssertionError(f"two identical default requests sent at "
+                                 f"once differ: {answers[0][1]} and "
+                                 f"{answers[1][1]}")
+        print(f"  the two identical default requests: identical tables "
+              f"({len(answers[0][1]['onset'])} segments)", flush=True)
         audio_s = sum(duration for _, (_, duration), _ in SERVICE_REQUESTS)
         print(f"  {len(bodies)} requests from {SERVICE_CLIENTS} clients at "
               f"once: {audio_s:.1f} s of audio in {wall:.3f} s "
@@ -1340,7 +1406,6 @@ def service_phase(device) -> dict:
         # a frame-mode request alone: the encoder and the frame head only
         with StepCount(decode) as steps:
             status, answer, dt = _post(port, bodies[4])
-        frame_batches += frame_batches_of(SERVICE_REQUESTS[4][1][1])
         print(f"  frame mode 30 s alone: {status} in {dt:.3f} s, "
               f"{steps.calls} decoder steps", flush=True)
         if status != 201 or steps.calls != 0:
@@ -1358,17 +1423,19 @@ def service_phase(device) -> dict:
                 raise AssertionError(f"segment({kw}) differs between runs")
             print(f"  segment({kw}): {len(tables[0]['onset'])} segments, "
                   f"the same twice", flush=True)
-        batches = seg.fused_batches - fused + frame_batches
         counts = {"melproject": logmel.launches,
                   "attention_hm": attention.launches}
-        want = {"melproject": batches,
-                "attention_hm": batches * cfg.encoder_layers}
-        print(f"  launches {counts}: {seg.fused_batches - fused} fused "
-              f"batches of the batcher, {frame_batches} frame batches",
-              flush=True)
-        if counts != want:
-            raise AssertionError(f"service launch counts {counts}, want {want}")
+        want = {"melproject": count.batches,
+                "attention_hm": count.batches * cfg.encoder_layers}
+        print(f"  launches {counts}: {count.fused} fused batches of the "
+              f"batcher, {count.caller} batches on the handlers' threads, "
+              f"{count.frames} frame batches", flush=True)
+        if counts != want or count.fused != seg.fused_batches - fused:
+            raise AssertionError(f"service launch counts {counts}, want "
+                                 f"{want}; batcher {seg.fused_batches - fused} "
+                                 f"fused batches, counted {count.fused}")
     finally:
+        count.__exit__()
         app.shutdown()
         seg.close()
 
@@ -1399,13 +1466,238 @@ def service_phase(device) -> dict:
     # the worker held the segmenter: with it stopped, its weights and the
     # handler threads' cuBLAS workspaces go, so that the later phases' peaks
     # measure their own segmenters
-    del seg, app
+    del seg, app, count
     gc.collect()
     torch._C._cuda_clearCublasWorkspaces()
     print(f"  device memory allocated before the phase {held / 2**20:.1f} "
           f"MiB, after it {torch.cuda.memory_allocated() / 2**20:.1f} MiB",
           flush=True)
     print(f"  service phase {time.perf_counter() - start:.1f} s", flush=True)
+    return counts
+
+
+# ------------------------------------------------------------------ backend
+
+BACKEND_MODEL = "whisperseg-base-animal-vad"
+BACKEND_TRAIN_ITERATIONS = 30   # the fine-tune's cap (its shim's floor)
+BACKEND_TRAIN_LIMIT_S = 600     # the fine-tuned model must be ready by then
+
+# run by the backend's worker as its train_script, in a subprocess: the
+# train CLI with the iteration cap, then its kernel launches to a file
+BACKEND_TRAIN_SHIM = """import json, sys
+from whisperseg_torch.cli.train import main
+from whisperseg_torch.ops import attention, logmel
+main(sys.argv[1:] + ["--min_num_iterations", "{iterations}",
+                     "--print_every", "10"])
+with open({launches_path!r}, "w") as f:
+    json.dump({{"melproject": logmel.launches,
+               "attention_hm_lse": attention.launches_lse,
+               "attention_hm_bwd_dkv": attention.launches_bwd_dkv,
+               "attention_hm_bwd_dq": attention.launches_bwd_dq}}, f)
+"""
+
+
+def _post_form(port: int, path: str, fields: dict, files: dict = None):
+    """One multipart/form-data POST -> (status, answer, seconds)."""
+    import http.client
+    import uuid
+
+    boundary = uuid.uuid4().hex
+    parts = [f"--{boundary}\r\nContent-Disposition: form-data; "
+             f'name="{k}"\r\n\r\n{v}\r\n'.encode() for k, v in fields.items()]
+    for k, (filename, payload) in (files or {}).items():
+        parts.append(f"--{boundary}\r\nContent-Disposition: form-data; "
+                     f'name="{k}"; filename="{filename}"\r\n\r\n'.encode()
+                     + payload + b"\r\n")
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body, {
+            "Content-Type": f"multipart/form-data; boundary={boundary}"})
+        resp = conn.getresponse()
+        answer = json.loads(resp.read())
+    finally:
+        conn.close()
+    return resp.status, answer, time.perf_counter() - t0
+
+
+def _check_form_table(table: dict, duration: float, what: str) -> None:
+    """A well-formed table, empty or not, collapsed segments admitted (a
+    model without fitted frame post-processing keeps them)."""
+    if set(table) != {"onset", "offset", "cluster"}:
+        raise AssertionError(f"{what}: not a segment table: {table}")
+    if table["onset"]:
+        _check_table(table, duration, what, collapsed=True)
+
+
+def backend_phase(device) -> dict:
+    """The model-zoo backend (``services/backend.py``) on 127.0.0.1 with the
+    shipped base checkpoint as a built-in model (bf16) and its training
+    worker running: /segment with a WAV and a FLAC of one 10 s recording
+    must answer 200 and tables identical to each other and to
+    ``Segmenter.segment()`` on the decoded samples with the backend's
+    arguments; then frame mode on the FLAC and a crafted MP3; the mel kernel
+    must launch once a batch and the attention kernel once an encoder layer
+    a batch. Then a fine-tune over HTTP (``client.train``: a zip of three
+    FLAC recordings with CSV labels) that the worker runs as a subprocess on
+    the card, capped at BACKEND_TRAIN_ITERATIONS steps: it must exit 0,
+    launch the attention kernel (with the row log-sum-exp) and both backward
+    kernels once an encoder layer a step, and its model must be listed ready
+    within BACKEND_TRAIN_LIMIT_S and answer /segment with a table. Returns
+    the segment requests' launch counts of K1 and K2."""
+    import io
+    import tempfile
+    import threading
+    import zipfile
+
+    from whisperseg_torch.audio.io import load_audio
+    from whisperseg_torch.hub import builtin_models
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.services import client
+    from whisperseg_torch.services.backend import BackendState, build_app
+    from whisperseg_torch.synthetic import (audio_bytes, crafted_mp3,
+                                            tone_bursts, tone_dataset_zip)
+
+    card = card_line()
+    start = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    models = builtin_models()
+    pretrained = [{"model_name": name, "inference_model_path": path,
+                   "finetune_model_path": path}
+                  for name, path in models.items()]
+    with tempfile.TemporaryDirectory() as tmp:
+        shim = os.path.join(tmp, "train_capped.py")
+        launches_path = os.path.join(tmp, "train_launches.json")
+        with open(shim, "w") as f:
+            f.write(BACKEND_TRAIN_SHIM.format(
+                iterations=BACKEND_TRAIN_ITERATIONS,
+                launches_path=launches_path))
+        state = BackendState(os.path.join(tmp, "datasets"),
+                             os.path.join(tmp, "models"),
+                             pretrained_models=pretrained, train_script=shim,
+                             device=device)
+        app = build_app(state)
+        port = app.serve("127.0.0.1", 0, background=True).server_address[1]
+        for target in (state.run_training_worker, state.periodic_list_models):
+            threading.Thread(target=target, daemon=True).start()
+        seg = state.get_segmenter(BACKEND_MODEL, models[BACKEND_MODEL])
+        layers = seg.config.encoder_layers
+        count = BatchCount(seg).__enter__()
+        try:
+            audio = tone_bursts(106, duration=10.0)
+            uploads = {fmt: audio_bytes(audio, SR, fmt)
+                       for fmt in ("wav", "flac")}
+            logmel.launches = attention.launches = 0
+            answers = {}
+            for fmt, body in uploads.items():
+                status, answer, dt = _post_form(
+                    port, "/segment",
+                    {"model_name": BACKEND_MODEL, "num_trials": 1},
+                    {"audio_file": (f"rec.{fmt}", body)})
+                print(f"  /segment {fmt.upper()} 10 s ({len(body)} bytes): "
+                      f"{status} in {dt:.3f} s, "
+                      f"{len(answer.get('onset', []))} segments [{card}]",
+                      flush=True)
+                if status != 200:
+                    raise AssertionError(f"/segment {fmt}: {status} {answer}")
+                _check_table(answer, 10.0, f"/segment {fmt}")
+                answers[fmt] = answer
+            samples, sr = load_audio(io.BytesIO(uploads["flac"]))
+            want = json.loads(json.dumps(
+                seg.segment(samples, sr, num_trials=1, batch_size=8)))
+            if not answers["wav"] == answers["flac"] == want:
+                raise AssertionError(f"WAV {answers['wav']}, FLAC "
+                                     f"{answers['flac']}, segment() {want}")
+            print("  the WAV's and the FLAC's tables are identical, and equal "
+                  "to segment() on the decoded samples", flush=True)
+            for what, fields, upload, duration in (
+                    ("FLAC, frame_mode=1", {"frame_mode": 1},
+                     ("rec.flac", uploads["flac"]), 10.0),
+                    ("crafted MP3 5 s", {"num_trials": 1},
+                     ("rec.mp3", crafted_mp3(107, 5.0, SR)), 5.0)):
+                status, answer, dt = _post_form(
+                    port, "/segment", {"model_name": BACKEND_MODEL, **fields},
+                    {"audio_file": upload})
+                print(f"  /segment {what}: {status} in {dt:.3f} s, "
+                      f"{len(answer.get('onset', []))} segments [{card}]",
+                      flush=True)
+                if status != 200:
+                    raise AssertionError(f"/segment {what}: {status} {answer}")
+                _check_form_table(answer, duration, f"/segment {what}")
+            counts = {"melproject": logmel.launches,
+                      "attention_hm": attention.launches}
+            print(f"  launches {counts}: {count.caller} seq2seq batches, "
+                  f"{count.frames} frame batches", flush=True)
+            if counts != {"melproject": count.batches,
+                          "attention_hm": layers * count.batches} \
+                    or not count.batches:
+                raise AssertionError(f"backend launch counts {counts} for "
+                                     f"{count.batches} batches")
+        finally:
+            count.__exit__()
+
+        # fine-tune over HTTP; the worker polls its queue every 5 s
+        name = "tones-finetuned"
+        t0 = time.perf_counter()
+        dataset = os.path.join(tmp, "upload")  # the user's folder
+        with zipfile.ZipFile(io.BytesIO(tone_dataset_zip(
+                3, seed=700, sr=SR, duration=10.0))) as zf:
+            zf.extractall(dataset)
+        answer = client.train(f"127.0.0.1:{port}", dataset, name,
+                              initial_model_name=BACKEND_MODEL, num_epochs=1)
+        if answer != {"message": "Training"}:
+            raise AssertionError(f"/submit-training-request: {answer}")
+        ready, log = [], {}
+        while time.perf_counter() - t0 < BACKEND_TRAIN_LIMIT_S:
+            _, listed, _ = _post_form(
+                port, "/list-models-available-for-inference", {})
+            ready = [m["model_name"] for m in listed["response"]]
+            log = state.training_log[-1] if state.training_log else {}
+            if name in ready or log.get("exit_code", 0) != 0:
+                break
+            time.sleep(1)
+        wall = time.perf_counter() - t0
+        final = os.path.join(tmp, "models", name, "final_checkpoint")
+        steps = None
+        if os.path.exists(os.path.join(final, "config.json")):
+            with open(os.path.join(final, "config.json")) as f:
+                steps = json.load(f).get("current_step")
+        print(f"  fine-tune: exit code {log.get('exit_code')}, {steps} "
+              f"iterations, subprocess {log.get('seconds') or 0:.1f} s, ready "
+              f"for inference {wall:.1f} s after the request [{card}]",
+              flush=True)
+        if log.get("exit_code") != 0 or name not in ready:
+            raise AssertionError(f"fine-tune: log {state.training_log}, "
+                                 f"ready {ready}")
+        with open(launches_path) as f:
+            sub = json.load(f)
+        print(f"  the fine-tune subprocess's launches {sub}", flush=True)
+        per_step = layers * steps
+        if not (sub["attention_hm_lse"] == sub["attention_hm_bwd_dkv"]
+                == sub["attention_hm_bwd_dq"] == per_step
+                and sub["melproject"] > 0):
+            raise AssertionError(f"fine-tune launches {sub}, want "
+                                 f"{per_step} of each attention kernel")
+        status, answer, dt = _post_form(
+            port, "/segment", {"model_name": name, "num_trials": 1},
+            {"audio_file": ("rec.flac", uploads["flac"])})
+        print(f"  /segment with {name}: {status} in {dt:.3f} s, "
+              f"{len(answer.get('onset', []))} segments [{card}]", flush=True)
+        if status != 200:
+            raise AssertionError(f"/segment with {name}: {status} {answer}")
+        _check_form_table(answer, 10.0, f"/segment with {name}")
+        app.shutdown()
+        state.release_segmenters()
+    del seg, count
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    print(f"  device memory allocated before the phase {held / 2**20:.1f} "
+          f"MiB, after it {torch.cuda.memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    print(f"  backend phase {time.perf_counter() - start:.1f} s [{card}]",
+          flush=True)
     return counts
 
 
@@ -1703,6 +1995,10 @@ def main() -> int:
     print("[service] base checkpoint, bfloat16, the HTTP service with its "
           "continuous batcher, and the segment CLI", flush=True)
     service_phase(device)
+
+    print("[backend] base checkpoint, bfloat16, the model-zoo backend: WAV, "
+          "FLAC and MP3 uploads, then a fine-tune over HTTP", flush=True)
+    backend_phase(device)
 
     print("[profile] bfloat16", flush=True)
     mouse_frontend_stage(device)

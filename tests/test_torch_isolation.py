@@ -61,7 +61,23 @@ def test_no_jax_or_reference_package_import_anywhere():
             "whisperseg_torch/cli/segment.py",
             "whisperseg_torch/services/batching.py",
             "whisperseg_torch/services/http_util.py",
-            "whisperseg_torch/services/segment_service.py"} <= scanned
+            "whisperseg_torch/services/segment_service.py",
+            "whisperseg_torch/services/post_process.py",
+            "whisperseg_torch/services/backend.py",
+            "whisperseg_torch/services/client.py",
+            "whisperseg_torch/services/gui.py",
+            "whisperseg_torch/audio/flac.py",
+            "whisperseg_torch/audio/formats.py",
+            "whisperseg_torch/audio/native.py",
+            "whisperseg_torch/audio/mp3_tables.py",
+            "whisperseg_torch/audio/mp3_dsp.py",
+            "whisperseg_torch/audio/mp3.py",
+            "whisperseg_torch/audio/mp3_craft.py",
+            "whisperseg_torch/audio/vorbis.py",
+            "whisperseg_torch/audio/mpg123.py",
+            "whisperseg_torch/audio/opus.py",
+            "whisperseg_torch/audio/viewer.py",
+            "whisperseg_torch/refine.py"} <= scanned
     # neither JAX nor the JAX package, nor the packages the chip machine
     # lacks (the JAX package's CLI and services use some of them)
     banned = ("jax", "jaxlib", "whisperseg_tpu", "pandas", "tqdm", "requests",
@@ -72,9 +88,11 @@ def test_no_jax_or_reference_package_import_anywhere():
 
 
 def test_service_frame_mode_and_cli_without_jax(tmp_path):
-    """A CPU service request through the continuous batcher, and the segment
-    CLI in frame mode over a stream, with JAX and the packages the chip
-    machine lacks unimportable."""
+    """A CPU service request through the continuous batcher (with the
+    checkpoint's frame post-processing off: a request that needs the frame
+    tracks runs on its caller's thread), and the segment CLI in frame mode
+    over a stream, with JAX and the packages the chip machine lacks
+    unimportable."""
     code = (
         "import sys\n"
         "for m in ('jax', 'pandas', 'tqdm', 'requests', 'flask'):\n"
@@ -93,7 +111,8 @@ def test_service_frame_mode_and_cli_without_jax(tmp_path):
         "httpd = app.serve('127.0.0.1', 0, background=True)\n"
         "body = json.dumps({'audio_file_base64_string':\n"
         "    base64.b64encode(buf.getvalue()).decode(), 'sr': 32000,\n"
-        "    'num_trials': 1, 'num_beams': 1}).encode()\n"
+        "    'num_trials': 1, 'num_beams': 1, 'frame_split': 0,\n"
+        "    'frame_refine_ms': 0, 'frame_filter': 0}).encode()\n"
         "req = urllib.request.Request(\n"
         "    f'http://127.0.0.1:{httpd.server_address[1]}/segment', data=body)\n"
         "with urllib.request.urlopen(req, timeout=120) as resp:\n"
@@ -118,6 +137,47 @@ def test_service_frame_mode_and_cli_without_jax(tmp_path):
     with open(tmp_path / "a.csv") as f:
         assert f.readline() == "onset,offset,cluster\n"
         assert f.readline()
+
+
+def test_backend_client_and_decoders_without_jax(tmp_path):
+    """The backend on the CPU answers the client's FLAC upload, and FLAC,
+    MP3 and the native library decode, with JAX and the packages the chip
+    machine lacks unimportable."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'pandas', 'tqdm', 'requests', 'flask'):\n"
+        "    sys.modules[m] = None\n"
+        "import os\n"
+        "import torch; torch.set_num_threads(1)  # beside other test processes\n"
+        "from whisperseg_torch.audio import native\n"
+        "from whisperseg_torch.audio.io import load_audio\n"
+        "from whisperseg_torch.services import client, gui\n"
+        "from whisperseg_torch.services.backend import BackendState, build_app\n"
+        "from whisperseg_torch.synthetic import audio_bytes, crafted_mp3, tone_bursts\n"
+        f"root = {str(tmp_path)!r}\n"
+        f"entry = {{'model_name': 'tiny', 'inference_model_path': {TINY!r},\n"
+        f"         'finetune_model_path': {TINY!r}}}\n"
+        "state = BackendState(os.path.join(root, 'd'), os.path.join(root, 'm'),\n"
+        "                     pretrained_models=[entry], device='cpu')\n"
+        "state.model_information['all_models'] = state.list_models()\n"
+        "app = build_app(state)\n"
+        "port = app.serve('127.0.0.1', 0, background=True).server_address[1]\n"
+        "path = os.path.join(root, 'a.flac')\n"
+        "with open(path, 'wb') as f:\n"
+        "    f.write(audio_bytes(tone_bursts(0, duration=1.0), 32000, 'flac'))\n"
+        "table = client.segment(f'127.0.0.1:{port}', path, 'tiny')\n"
+        "app.shutdown()\n"
+        "assert set(table) == {'onset', 'offset', 'cluster'}, table\n"
+        "y, sr = load_audio(crafted_mp3(1, duration=1.0))\n"
+        "assert sr == 32000 and abs(y).max() > 0\n"
+        "assert native.available() and gui.PAGE\n"
+        "assert not any(m == 'whisperseg_tpu' or m.startswith('whisperseg_tpu.')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_entry_points_without_device_need_cuda(monkeypatch):

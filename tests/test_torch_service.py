@@ -116,7 +116,9 @@ def test_concurrent_requests_fuse_and_match_plain(plain, batched, monkeypatch,
                                                   frames):
     """Three concurrent requests of 1-2 windows share device batches and each
     gets the plain Segmenter's table; ``frames`` keeps the checkpoint's frame
-    post-processing on, so the fused batches also carry the frame head."""
+    post-processing on, so the requests need the frame head's tracks: then,
+    as in the JAX batcher, none is fused (each runs its own batch on its
+    caller's thread) and each still gets the plain table."""
     kw = dict(num_beams=1, batch_size=4)  # the batcher's smallest bucket
     if not frames:
         kw.update(frame_split=0, frame_refine_ms=0, frame_filter=0)
@@ -129,6 +131,10 @@ def test_concurrent_requests_fuse_and_match_plain(plain, batched, monkeypatch,
                          for a in audios])
     assert got == want
     assert sum(len(w["onset"]) for w in want) >= 9
+    if frames:
+        assert batched.fused_batches == before
+        assert rows == [4, 4, 4], rows  # one batch of batch_size a request
+        return
     assert len(rows) < 3, rows  # 4 windows in fewer device batches
     assert batched.fused_batches - before == len(rows)
     assert all(r in (4, 8) for r in rows)  # power-of-two buckets
@@ -158,18 +164,39 @@ def test_error_reaches_every_waiter_and_the_worker_lives(batched, monkeypatch):
 
 def test_early_release_before_the_group_ends(monkeypatch):
     """Two 3-window requests fused into one group of two device batches of
-    4: the first request returns while the second batch is still running."""
+    4: the first request returns while the second batch is still running.
+    Request 1 starts once request 0's windows are queued, so request 0 heads
+    the group and its windows fill the first batch. The checkpoint's frame
+    post-processing is off: requests that need the frame tracks are not
+    fused."""
     params, cfg = _tiny()
     seg = BatchingSegmenter(params, cfg, inference_dtype="float32",
-                            device="cpu", max_batch_size=4, max_wait_ms=200)
+                            device="cpu", max_batch_size=4, max_wait_ms=2000)
     rows = _spy(monkeypatch, seg, delay=0.5)
+    queued, groups = threading.Event(), []
+    put, decode_group = seg._queue.put, seg._decode_group
+
+    def put_and_tell(item, *args, **kwargs):
+        put(item, *args, **kwargs)
+        queued.set()
+
+    def record_group(group):
+        groups.append(len(group))
+        decode_group(group)
+    monkeypatch.setattr(seg._queue, "put", put_and_tell)
+    monkeypatch.setattr(seg, "_decode_group", record_group)
     audios = [tone_bursts(80 + i, duration=7.5) for i in range(2)]
     done_at = [None, None]
 
     def request(i):
-        seg.segment(audios[i], SR, num_beams=1)
+        if i == 1:
+            assert queued.wait(60)
+        seg.segment(audios[i], SR, num_beams=1, frame_split=0,
+                    frame_refine_ms=0, frame_filter=0)
         done_at[i] = time.monotonic()
     _concurrently([lambda: request(0), lambda: request(1)])
+    seg.close()
+    assert groups == [2]  # one fused group
     assert rows == [4, 4]
     assert done_at[1] - done_at[0] > 0.3
 

@@ -1,8 +1,8 @@
 """Streaming and the segment CLI of the port.
 
 ``audio/stream.py``: chunks of ``AudioStream`` equal ``load_audio``'s audio,
-resampled too, with a ragged tail and with channel selection; compressed
-files raise. ``Segmenter.segment_streaming``: the table of ``segment()`` /
+resampled too, with a ragged tail and with channel selection, and
+compressed files (FLAC, MP3, Ogg) as the JAX package's stream does. ``Segmenter.segment_streaming``: the table of ``segment()`` /
 ``segment_from_frames()`` on the same file, and of the JAX package's
 ``segment_streaming``. ``whisperseg_torch.cli.segment.main``: the CSV bytes
 of ``whisperseg_tpu.cli.segment.main`` for ``--audio_path``,
@@ -10,6 +10,7 @@ of ``whisperseg_tpu.cli.segment.main`` for ``--audio_path``,
 tiny checkpoint, with a config that sets float32 compute, in both).
 """
 
+import ctypes.util
 import io
 import json
 import os
@@ -20,13 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from whisperseg_tpu.audio.stream import AudioStream as JaxAudioStream
 from whisperseg_tpu.cli import segment as jax_cli
 from whisperseg_tpu.segmenter import Segmenter as JaxSegmenter
+from whisperseg_torch.audio.flac import encode_flac
 from whisperseg_torch.audio.io import load_audio, save_wav
 from whisperseg_torch.audio.stream import AudioStream
 from whisperseg_torch.cli import segment as cli
 from whisperseg_torch.segmenter import Segmenter
-from whisperseg_torch.synthetic import tone_bursts
+from whisperseg_torch.synthetic import crafted_mp3, pcm16, tone_bursts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "pretrained", "whisperseg-tiny-animal-vad")
@@ -96,11 +99,31 @@ def test_stream_float_wav_and_channel_select(tmp_path):
 
 
 def test_stream_refuses_compressed_files(tmp_path):
-    path = str(tmp_path / "a.flac")
-    with open(path, "wb") as f:
-        f.write(b"fLaC" + bytes(60))
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        AudioStream(path)
+    """Compressed containers (FLAC, MP3, Ogg Vorbis) are no longer refused:
+    decoded whole and served in chunks, they stream like the JAX package's
+    ``AudioStream``, with resampling and ``channel_id``, and equal
+    ``load_audio``."""
+    y = np.stack([tone_bursts(30, sr=16000, duration=1.0),
+                  tone_bursts(31, sr=16000, duration=1.0)], axis=1)
+    streams = {"flac": encode_flac(pcm16(y), 16000),
+               "mp3": crafted_mp3(32, duration=1.0, sr=32000)}
+    if all(ctypes.util.find_library(n) for n in ("vorbis", "vorbisenc", "ogg")):
+        from test_vorbis import encode_ogg
+
+        streams["ogg"] = encode_ogg(y, 16000)
+    for fmt, blob in streams.items():
+        path = str(tmp_path / f"a.{fmt}")
+        with open(path, "wb") as f:
+            f.write(blob)
+        for kw in ({}, {"sr": 8000, "channel_id": 1}):
+            got, sr = _streamed(path, chunk_seconds=1, **kw)
+            with JaxAudioStream(path, chunk_seconds=1, **kw) as s:
+                want = np.concatenate(list(s))
+                assert s.sr == sr
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                got, load_audio(path, sr=kw.get("sr"),
+                                channel_id=kw.get("channel_id"))[0])
 
 
 # ------------------------------------------------------- streaming segmentation

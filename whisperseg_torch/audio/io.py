@@ -1,10 +1,15 @@
-"""Host-side audio I/O, the WAV part of ``whisperseg_tpu/audio/io.py``.
+"""Host-side audio I/O (the port of ``whisperseg_tpu/audio/io.py``).
 
-WAV decoding is the stdlib ``wave`` header parser plus numpy (PCM of 8, 16,
-24 and 32 bits, and IEEE float, which ``wave`` rejects); resampling is a
-polyphase FIR filter (``scipy.signal.resample_poly``). Compressed containers
-(flac, mp3, ogg) raise ``NotImplementedError``: their decoders are ROADMAP.md
-Queue A item 9.
+WAV decoding is the native C++ decoder (``audio/native.py``) when the
+library builds, else the stdlib ``wave`` header parser plus numpy (PCM of 8,
+16, 24 and 32 bits, and IEEE float, which ``wave`` rejects); resampling is
+the native polyphase resampler for mono audio, else
+``scipy.signal.resample_poly``. Compressed containers decode through
+``audio/formats.py``: FLAC by ``audio/flac.py``, Ogg Vorbis by
+``audio/vorbis.py`` (Ogg Opus through the system libopus), MP3 by the Layer
+III decoder in ``audio/mp3.py`` (libmpg123 and SDL2_mixer as fallbacks).
+The format is told by magic bytes, not by the file's extension, so bytes
+from stdin or a request body work too.
 """
 
 from __future__ import annotations
@@ -15,9 +20,6 @@ from math import gcd
 from typing import Optional, Tuple
 
 import numpy as np
-
-_COMPRESSED = ("flac", "mp3", "ogg")
-
 
 def _pcm_to_float(data: bytes, sampwidth: int, n_channels: int) -> np.ndarray:
     """Raw PCM bytes -> float32 in [-1, 1), shaped (num_frames, n_channels)."""
@@ -75,14 +77,34 @@ def _read_wav_ieee_float(path_or_bytes) -> Optional[Tuple[np.ndarray, int]]:
 
 
 def read_wav(path_or_bytes) -> Tuple[np.ndarray, int]:
-    """Decode a WAV file (path, bytes, or file-like) -> (float32 (frames, ch),
-    sr)."""
+    """Decode a WAV file (path, bytes, or file-like) -> (float32 (frames, ch), sr).
+
+    Uses the native C++ decoder (native/src/ws_audio.cpp) when built, with this
+    numpy implementation as the reference fallback."""
+    from . import native
+
+    if native.available():
+        if isinstance(path_or_bytes, (bytes, bytearray)):
+            data = bytes(path_or_bytes)
+        elif hasattr(path_or_bytes, "read"):
+            path_or_bytes.seek(0)
+            data = path_or_bytes.read()
+        else:
+            with open(path_or_bytes, "rb") as f:
+                data = f.read()
+        decoded = native.decode_wav(data)
+        if decoded is not None:
+            return decoded
+        path_or_bytes = data  # fall through to the numpy path
+
     if isinstance(path_or_bytes, (bytes, bytearray)):
         src = io.BytesIO(bytes(path_or_bytes))
+    elif hasattr(path_or_bytes, "read"):
+        src = path_or_bytes
     else:
         src = path_or_bytes
     try:
-        with wave.open(src, "rb") as w:
+        with wave.open(src if not isinstance(src, str) else src, "rb") as w:
             sr = w.getframerate()
             n_channels = w.getnchannels()
             sampwidth = w.getsampwidth()
@@ -113,56 +135,51 @@ def save_wav(path, y: np.ndarray, sr: int) -> None:
 
 
 def resample(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase FIR resampling along the first axis."""
+    """Polyphase FIR resampling along the first axis (native C++ when built,
+    scipy fallback)."""
     if orig_sr == target_sr:
         return y
+    from . import native
+
+    if native.available() and y.ndim == 1:
+        out = native.resample(y, int(orig_sr), int(target_sr))
+        if out is not None:
+            return out
     from scipy.signal import resample_poly
 
     g = gcd(int(orig_sr), int(target_sr))
     return resample_poly(y, target_sr // g, orig_sr // g, axis=0).astype(np.float32)
 
 
-def sniff_format(data: bytes) -> str:
-    """'wav' | 'flac' | 'ogg' | 'mp3' | 'unknown' from magic bytes."""
-    if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
-        return "wav"
-    if data[:4] == b"fLaC":
-        return "flac"
-    if data[:4] == b"OggS":
-        return "ogg"
-    if data[:3] == b"ID3":
-        return "mp3"
-    if len(data) >= 2 and data[0] == 0xFF and (data[1] & 0xE0) == 0xE0:
-        return "mp3"
-    return "unknown"
+def load_audio(
+    path_or_bytes,
+    sr: Optional[int] = None,
+    mono: bool = True,
+    channel_id: Optional[int] = None,
+) -> Tuple[np.ndarray, int]:
+    """librosa.load-compatible entry point: returns (float32 1-D or (ch, n), sr).
 
+    ``mono=True`` averages channels (librosa semantics); ``channel_id`` selects one
+    channel from a multi-channel file (reference segment_service.py:76-80).
 
-def _head(path_or_bytes) -> bytes:
+    Accepts wav/flac/mp3/ogg — dispatched on magic bytes (see audio/formats.py).
+    """
+    from .formats import decode_compressed, sniff_format
+
     if isinstance(path_or_bytes, (bytes, bytearray)):
-        return bytes(path_or_bytes[:16])
-    if hasattr(path_or_bytes, "read"):
+        head = bytes(path_or_bytes[:16])
+    elif hasattr(path_or_bytes, "read"):
         path_or_bytes.seek(0)
         head = path_or_bytes.read(16)
         path_or_bytes.seek(0)
-        return head
-    with open(path_or_bytes, "rb") as f:
-        return f.read(16)
-
-
-def _refuse_compressed(fmt: str) -> None:
-    if fmt in _COMPRESSED:
-        raise NotImplementedError(
-            f"{fmt} decoding is not ported yet: ROADMAP.md Queue A item 9 "
-            f"(audio containers); convert the file to WAV")
-
-
-def load_audio(path_or_bytes, sr: Optional[int] = None, mono: bool = True,
-               channel_id: Optional[int] = None) -> Tuple[np.ndarray, int]:
-    """librosa.load-compatible entry point: returns (float32 1-D or (ch, n),
-    sr). ``mono=True`` averages channels; ``channel_id`` selects one channel
-    of a multi-channel file."""
-    _refuse_compressed(sniff_format(_head(path_or_bytes)))
-    y, native_sr = read_wav(path_or_bytes)
+    else:
+        with open(path_or_bytes, "rb") as f:
+            head = f.read(16)
+    fmt = sniff_format(head)
+    if fmt in ("flac", "mp3", "ogg"):
+        y, native_sr = decode_compressed(path_or_bytes, fmt)
+    else:
+        y, native_sr = read_wav(path_or_bytes)
     if channel_id is not None and y.shape[1] > 1:
         y = y[:, channel_id:channel_id + 1]
     if mono or y.shape[1] == 1:
@@ -176,28 +193,71 @@ def load_audio(path_or_bytes, sr: Optional[int] = None, mono: bool = True,
     return np.ascontiguousarray(y, dtype=np.float32), target
 
 
+def _flac_info_cheap(path: str) -> dict:
+    """STREAMINFO from the file head; full read only if the metadata section
+    (e.g. embedded artwork) exceeds the head window."""
+    from .flac import flac_stream_info
+
+    with open(path, "rb") as f:
+        head = f.read(1 << 16)
+    try:
+        return flac_stream_info(head)
+    except ValueError:
+        with open(path, "rb") as f:
+            return flac_stream_info(f.read())
+
+
 def get_sampling_rate(path: str) -> int:
-    """Header-only sampling-rate probe of a WAV file."""
-    _refuse_compressed(sniff_format(_head(path)))
+    """Header-only sampling-rate probe (reference audio_utils.py:19-22),
+    covering wav/flac/mp3/ogg. Dispatches on magic bytes first so non-WAV
+    files don't pay a full-file WAV parse attempt."""
+    with open(path, "rb") as f:
+        magic = f.read(16)
+    from .formats import probe_sampling_rate, sniff_format
+
+    fmt = sniff_format(magic)
+    if fmt == "flac":
+        return _flac_info_cheap(path)["sr"]
+    if fmt in ("mp3", "ogg"):
+        # mp3 resync may need to skip an arbitrarily large ID3 tag; ogg only
+        # needs the first page — one read covers both
+        with open(path, "rb") as f:
+            return probe_sampling_rate(f.read())
     try:
         with wave.open(path, "rb") as w:
             return w.getframerate()
     except wave.Error:
         out = _read_wav_ieee_float(path)
-        if out is None:
-            raise
-        return out[1]
+        if out is not None:
+            return out[1]
+        with open(path, "rb") as f:
+            return probe_sampling_rate(f.read())
 
 
 def get_audio_duration(path: str) -> float:
-    """Header-only duration probe of a WAV file, in seconds."""
-    _refuse_compressed(sniff_format(_head(path)))
+    """Header-only duration probe in seconds (reference audio_utils.py:24-30),
+    covering wav/flac/mp3/ogg."""
+    with open(path, "rb") as f:
+        magic = f.read(16)
+    from .formats import probe_duration, sniff_format
+
+    fmt = sniff_format(magic)
+    if fmt == "flac":
+        info = _flac_info_cheap(path)
+        return info["total_samples"] / info["sr"] if info["sr"] else 0.0
+    if fmt in ("mp3", "ogg"):
+        # mp3 walks every frame (VBR-safe) and ogg reads the LAST page's
+        # granule — both need the full byte string
+        with open(path, "rb") as f:
+            return probe_duration(f.read())
     try:
         with wave.open(path, "rb") as w:
             return w.getnframes() / w.getframerate()
     except wave.Error:
-        out = _read_wav_ieee_float(path)
-        if out is None:
-            raise
-        y, sr = out
-        return len(y) / sr
+        with open(path, "rb") as f:
+            data = f.read()
+        out = _read_wav_ieee_float(data)
+        if out is not None:
+            y, sr = out
+            return len(y) / sr
+        return probe_duration(data)

@@ -1,7 +1,7 @@
 """Bounded-memory streaming ingest (the port of
 ``whisperseg_tpu/audio/stream.py``).
 
-:class:`AudioStream` yields fixed-length mono float32 chunks of a WAV file at
+:class:`AudioStream` yields fixed-length mono float32 chunks of a file at
 a target sampling rate while holding only O(chunk) samples;
 ``Segmenter.segment_streaming`` consumes it with per-trial carry buffers, so
 the whole segmentation pipeline runs at bounded memory over files of any
@@ -18,8 +18,10 @@ the resampler's ``ceil(n * up / down)`` output length.
 
 WAV files (PCM 8/16/24/32-bit and IEEE float, plain or
 WAVE_FORMAT_EXTENSIBLE) stream off disk. Compressed containers (flac, mp3,
-ogg) raise ``NotImplementedError``, as ``audio/io.py`` does: their decoders
-are ROADMAP.md Queue A item 9.
+ogg) are decoded whole at their native rate, since their codecs carry state
+from frame to frame, and then served in chunks like a WAV file, so that
+downstream code has one path; the memory bound holds for the WAV recordings
+that long field sessions produce.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from .io import (_head, _pcm_to_float, _refuse_compressed, resample,
-                 sniff_format)
+from .formats import sniff_format
+from .io import _pcm_to_float, resample
 
 
 class _WavChunkReader:
@@ -113,13 +115,22 @@ class AudioStream:
     def __init__(self, path: str, sr: Optional[int] = None,
                  chunk_seconds: float = 60.0,
                  channel_id: Optional[int] = None):
-        _refuse_compressed(sniff_format(_head(path)))
         self.path = path
         self.channel_id = channel_id
         self.chunk_seconds = max(1, int(round(chunk_seconds)))
-        self._reader = _WavChunkReader(path)
-        self.native_sr = self._reader.sr
-        self.n_frames = self._reader.n_frames
+        with open(path, "rb") as f:
+            head = f.read(16)
+        self._fallback_audio: Optional[np.ndarray] = None
+        if sniff_format(head) in ("flac", "mp3", "ogg"):
+            # stateful codecs: decoded whole, served in chunks (module doc)
+            self._fallback_audio, self.native_sr = _load_native(
+                path, channel_id)
+            self.n_frames = len(self._fallback_audio)
+            self._reader = None
+        else:
+            self._reader = _WavChunkReader(path)
+            self.native_sr = self._reader.sr
+            self.n_frames = self._reader.n_frames
         self.sr = int(sr) if sr else self.native_sr
         self.duration = self.n_frames / self.native_sr if self.native_sr else 0.0
 
@@ -132,7 +143,9 @@ class AudioStream:
         return np.ascontiguousarray(frames.mean(axis=1), dtype=np.float32)
 
     def _read_input(self, start: int, count: int) -> np.ndarray:
-        return self._mono(self._reader.read_frames(start, count))
+        if self._reader is not None:
+            return self._mono(self._reader.read_frames(start, count))
+        return self._fallback_audio[start:start + count]
 
     def __iter__(self) -> Iterator[np.ndarray]:
         n_in = self.n_frames
@@ -165,10 +178,21 @@ class AudioStream:
             pos += n
 
     def close(self):
-        self._reader.close()
+        if self._reader is not None:
+            self._reader.close()
+        self._fallback_audio = None
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+def _load_native(path: str, channel_id: Optional[int]):
+    """The whole file at its native rate, with ``load_audio``'s channel
+    semantics."""
+    from .io import load_audio
+
+    y, native_sr = load_audio(path, sr=None, mono=True, channel_id=channel_id)
+    return np.asarray(y, dtype=np.float32), native_sr

@@ -5,11 +5,10 @@ flags and the same CSV bytes).
         --model_path pretrained/whisperseg-base-animal-vad \
         --audio_path rec.wav --csv_save_path out.csv
 
-Takes one ``--audio_path`` (``-`` = WAV bytes on stdin) or an
+Takes one ``--audio_path`` (``-`` = audio bytes on stdin) or an
 ``--audio_folder`` (its wav/flac/mp3/ogg files, prepending a ``filename``
-column; the compressed ones raise ``NotImplementedError`` until their
-decoders are ported, ROADMAP.md Queue A item 9) and writes the CSV to a
-path or, with ``--csv_save_path buffer``, to stdout. It runs on the card;
+column) and writes the CSV to a path or, with ``--csv_save_path buffer``, to
+stdout. It runs on the card;
 ``--device cpu`` runs it on the CPU.
 """
 

@@ -1,7 +1,6 @@
-"""Post-processing of the segmenter: a copy of the parts of
-``whisperseg_tpu/refine.py`` that ``Segmenter.segment()`` and the frame-VAD
-mode call (the energy chain, the frame-head chain, and
-``segments_from_tracks``).
+"""Post-processing of the segmenter: a copy of ``whisperseg_tpu/refine.py``
+(the energy chain, the frame-head chain, ``segments_from_tracks``, and the
+offline fitters of their knobs, ``fit_postprocess`` and ``fit_frame_mode``).
 
 Energy-edge boundary refinement. Segment-wise F1 requires onset AND offset within a ±tolerance of ~4 columns
 (reference model.py:494-495); a from-scratch model's boundary error is far
@@ -278,16 +277,20 @@ def apply_postprocess(
     split_merged_db: Optional[float] = None,
     refine_boundaries_ms: Optional[float] = None,
     min_len_s: float = 0.01,
+    env: Optional[np.ndarray] = None,
 ) -> Dict[str, list]:
     """Apply the opt-in post-processing chain in its canonical order:
     merge small gaps -> split merged segments -> refine boundaries; a
     zero/None knob disables that stage. The merge runs first so a wrong
-    merge across a genuine energy valley is re-cut by the split stage."""
+    merge across a genuine energy valley is re-cut by the split stage.
+    ``env`` is the band envelope of ``audio``, made here when not given
+    (:func:`fit_postprocess` makes it once a file)."""
     if merge_gap_ms:
         prediction = merge_small_gaps(prediction, gap_s=merge_gap_ms / 1000.0)
     if not (split_merged_db or refine_boundaries_ms):
         return prediction
-    env = band_envelope_db(np.asarray(audio, dtype=np.float32), sr)
+    if env is None:
+        env = band_envelope_db(np.asarray(audio, dtype=np.float32), sr)
     if split_merged_db:
         prediction = split_merged_segments(prediction, env,
                                            drop_db=split_merged_db,
@@ -296,6 +299,140 @@ def apply_postprocess(
         prediction = refine_prediction(prediction, audio, sr, env,
                                        search_ms=refine_boundaries_ms)
     return prediction
+
+
+POSTPROCESS_KEYS = ("merge_gap_ms", "split_merged_db", "refine_boundaries_ms")
+FRAME_POSTPROCESS_KEYS = ("frame_split", "frame_refine_ms", "frame_filter")
+
+
+def _scoring_resolutions(labels):
+    """Per-label (tolerance, time_per_frame_for_scoring) with the reference's
+    defaults (reference model.py:494-495, 519-520)."""
+    tols = [lab.get("tolerance",
+                    lab.get("spec_time_step", 0.0025) * 4) for lab in labels]
+    tpfs = [lab.get("time_per_frame_for_scoring",
+                    min(0.001, lab.get("spec_time_step", 0.0025)))
+            for lab in labels]
+    return tols, tpfs
+
+
+def micro_f1(preds, labels, tols, tpfs):
+    """Micro-averaged (segment_F1, frame_F1) over a corpus — the shared
+    objective of both offline fitters below."""
+    from .scoring import frame_score, segment_score
+
+    seg_tp = seg_p = seg_l = fr_tp = fr_p = fr_l = 0.0
+    for pred, lab, tol, tpf in zip(preds, labels, tols, tpfs):
+        tp, p, l = segment_score(pred, lab, tolerance=tol)[:3]
+        seg_tp += tp; seg_p += p; seg_l += l
+        tp, p, l = frame_score(pred, lab, time_per_frame_for_scoring=tpf)[:3]
+        fr_tp += tp; fr_p += p; fr_l += l
+
+    def f1(tp, p, l):
+        pr, rc = tp / max(p, 1e-9), tp / max(l, 1e-9)
+        return 2 * pr * rc / max(pr + rc, 1e-9)
+
+    return f1(seg_tp, seg_p, seg_l), f1(fr_tp, fr_p, fr_l)
+
+
+def fit_postprocess(
+    predictions,
+    labels,
+    audios,
+    srs,
+    merge_gap_ms=(0.0, 5.0, 10.0),
+    split_db=(0.0, 10.0, 12.0, 15.0),
+    widths_ms=(0.0, 20.0, 30.0, 40.0, 60.0),
+    min_len_s: float = 0.01,
+    frame_tracks=None,
+    time_deltas=None,
+    frame_split=(0.0,),
+    frame_refine_ms=(0.0,),
+    frame_filter=(0.0,),
+):
+    """Grid-fit the post-processing knobs on a labeled set (intended: the
+    TRAINING files) by maximizing micro segment F1, tie-broken by frame F1
+    and then by simplicity (fewest active knobs, smallest values) so the
+    no-op chain wins whenever post-processing does not measurably help.
+
+    ``predictions`` are raw ``segment()`` outputs for ``audios`` (decode once,
+    fit many). Per-file scoring tolerance / frame resolution come from each
+    label's ``tolerance`` / ``time_per_frame_for_scoring`` keys with the
+    reference's defaults (reference model.py:494-495, 519-520).
+
+    When ``frame_tracks`` (per-audio ``Segmenter.frame_probs`` dicts) and
+    ``time_deltas`` (per-audio FFT-blur half-widths) are given, the grid also
+    spans the learned frame-head knobs ``frame_split`` / ``frame_refine_ms``,
+    chained AFTER the energy stages exactly as ``segment()`` applies them.
+
+    Returns ``(best_params, table)`` where ``best_params`` maps
+    ``POSTPROCESS_KEYS`` (+ ``FRAME_POSTPROCESS_KEYS`` when fitted) to the
+    winning (nonzero) values — an empty dict means post-processing off — and
+    ``table`` maps ``"merge_g+split_d+refine_w[+fsplit_s+fsnap_m]"`` combo
+    names to their ``{"segment_F1", "frame_F1"}`` train scores.
+    """
+    from itertools import product
+
+    envs = [band_envelope_db(np.asarray(a, dtype=np.float32), sr)
+            for a, sr in zip(audios, srs)]
+    tols, tpfs = _scoring_resolutions(labels)
+
+    def micro(preds):
+        return micro_f1(preds, labels, tols, tpfs)
+
+    fit_frames = frame_tracks is not None
+    if not fit_frames:
+        frame_split, frame_refine_ms, frame_filter = (0.0,), (0.0,), (0.0,)
+
+    def _with_zero(vals):
+        # every grid must span the no-op point: the tie-break prefers it, and
+        # callers (scripts/fit_postprocess.py) read the raw score from the
+        # all-zero combo — a user-supplied grid without 0 must not break that
+        vals = tuple(float(v) for v in vals)
+        return vals if 0.0 in vals else (0.0,) + vals
+
+    merge_gap_ms = _with_zero(merge_gap_ms)
+    split_db = _with_zero(split_db)
+    widths_ms = _with_zero(widths_ms)
+    frame_split = _with_zero(frame_split)
+    frame_refine_ms = _with_zero(frame_refine_ms)
+    frame_filter = _with_zero(frame_filter)
+
+    best, best_key, table = None, None, {}
+    for g, d, w in product(merge_gap_ms, split_db, widths_ms):
+        energy = [
+            apply_postprocess(pred, audio, sr, merge_gap_ms=g,
+                              split_merged_db=d, refine_boundaries_ms=w,
+                              min_len_s=min_len_s, env=env)
+            for pred, audio, sr, env in zip(predictions, audios, srs, envs)
+        ]
+        for fs, fm, ff in product(frame_split, frame_refine_ms, frame_filter):
+            if fit_frames and (fs or fm or ff):
+                processed = [
+                    apply_frame_postprocess(pred, tr, td, frame_split=fs,
+                                            frame_refine_ms=fm,
+                                            frame_filter=ff,
+                                            min_len_s=min_len_s)
+                    for pred, tr, td in zip(energy, frame_tracks, time_deltas)
+                ]
+            else:
+                processed = energy
+            seg_f1, fr_f1 = micro(processed)
+            name = f"merge_{g:g}+split_{d:g}+refine_{w:g}"
+            if fit_frames:
+                name += f"+fsplit_{fs:g}+fsnap_{fm:g}+ffilt_{ff:g}"
+            table[name] = {"segment_F1": round(seg_f1, 4),
+                           "frame_F1": round(fr_f1, 4)}
+            combo = (g, d, w, fs, fm, ff)
+            simplicity = (-sum(1 for v in combo if v),) + tuple(
+                -v for v in combo)
+            key = (round(seg_f1, 4), round(fr_f1, 4), simplicity)
+            if best_key is None or key > best_key:
+                best_key, best = key, combo
+
+    params = {k: v for k, v in
+              zip(POSTPROCESS_KEYS + FRAME_POSTPROCESS_KEYS, best) if v}
+    return params, table
 
 
 # ------------------------------------------------------- frame-head refinement
@@ -565,3 +702,61 @@ def segments_from_tracks(
         offsets.append(float(np.round(off, precision_bits)))
         clusters.append(name)
     return {"onset": onsets, "offset": offsets, "cluster": clusters}
+
+
+FRAME_MODE_KEYS = ("frame_vocal_threshold", "frame_cut_threshold",
+                   "frame_boundary_snap", "frame_gap_cut")
+
+
+def fit_frame_mode(
+    tracks_list,
+    labels,
+    durations,
+    time_deltas,
+    inverse_codebook,
+    vocal_threshold=(0.3, 0.4, 0.5, 0.6),
+    cut_threshold=(0.3, 0.5, 0.7),
+    boundary_snap=(2, 4, 8),
+    gap_cut=(0, 2, 5, 10),
+    min_segment_lengths=None,
+):
+    """Grid-fit the frame-VAD thresholds on a labeled set (intended: the
+    TRAINING files; tracks precomputed once per file). Selection: micro
+    segment F1, tie-broken by frame F1 then by proximity to the defaults.
+
+    Returns ``(best_params, table)`` with ``best_params`` keyed by
+    ``FRAME_MODE_KEYS`` (only values differing from the defaults included;
+    empty dict = defaults already optimal).
+    """
+    from itertools import product
+
+    tols, tpfs = _scoring_resolutions(labels)
+    if min_segment_lengths is None:
+        min_segment_lengths = [lab.get("spec_time_step", 0.0025) * 2
+                               for lab in labels]
+
+    defaults = (0.5, 0.5, 2, 0)
+    best, best_key, table = None, None, {}
+    for vt, ct, bs, gc in product(vocal_threshold, cut_threshold,
+                                  boundary_snap, gap_cut):
+        preds = [
+            segments_from_tracks(tr, dur, td, inverse_codebook,
+                                 vocal_threshold=vt, cut_threshold=ct,
+                                 boundary_snap=bs, min_segment_length=msl,
+                                 gap_cut=gc)
+            for tr, dur, td, msl in zip(tracks_list, durations, time_deltas,
+                                        min_segment_lengths)
+        ]
+        seg_f1, fr_f1 = micro_f1(preds, labels, tols, tpfs)
+        name = f"vt_{vt:g}+ct_{ct:g}+snap_{bs:g}+gap_{gc:g}"
+        table[name] = {"segment_F1": round(seg_f1, 4),
+                       "frame_F1": round(fr_f1, 4)}
+        closeness = -(abs(vt - defaults[0]) + abs(ct - defaults[1])
+                      + abs(bs - defaults[2]) / 10.0 + gc / 100.0)
+        key = (round(seg_f1, 4), round(fr_f1, 4), closeness)
+        if best_key is None or key > best_key:
+            best_key, best = key, (vt, ct, bs, gc)
+
+    params = {k: v for k, v in zip(FRAME_MODE_KEYS, best)
+              if v != dict(zip(FRAME_MODE_KEYS, defaults))[k]}
+    return params, table

@@ -1,1 +1,4 @@
-"""The segment service and its continuous batcher."""
+"""The segment service and its continuous batcher, the model-zoo backend,
+its client and the browser GUI."""
+
+from .post_process import PROCESS_TOOLBOX  # noqa: F401

@@ -10,10 +10,9 @@ as soon as its own windows are decoded.
 semantics (slicing, parsing and consolidation run on the calling thread);
 only the device-facing ``_generate_tokens`` goes through the shared batcher.
 A request that also needs the frame head's tracks (every default request on
-the shipped checkpoints, whose fitted frame post-processing is on) is fused
-too: its rows of the frame outputs are sliced out like its tokens. The JAX
-package runs such requests on the caller's thread instead, because its fused
-jit program's outputs are not split per request.
+the shipped checkpoints, whose fitted frame post-processing is on) is not
+fused: it runs on the caller's thread, as in the JAX package, so that its
+table does not depend on what else is in flight.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ class _WorkItem:
     top_p: float
     seed: int
     constrained: bool
-    collect_frames: bool
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[object] = None
     error: Optional[BaseException] = None
@@ -97,18 +95,24 @@ class BatchingSegmenter(Segmenter):
                          top_p=1.0, seed=0, constrained=False):
         if self._closed:
             raise RuntimeError("the BatchingSegmenter is closed")
+        if collect_frames:
+            # the caller's thread, in batches of the request's own size: the
+            # JAX batcher's rule for requests that need the frame tracks
+            return super()._generate_tokens(
+                clips, frontend, batch_size, max_length, num_beams,
+                length_penalty, status_monitor, collect_frames=True,
+                int8_kv=int8_kv, top_k=top_k, top_p=top_p, seed=seed,
+                constrained=constrained)
         # the worker decodes a fused group with the head item's seed, so two
         # sampled requests with different seeds must not share a group;
         # greedy requests ignore the seed and may
         key = (frontend.sr, frontend.spec_time_step, frontend.min_frequency,
                frontend.max_frequency, clips.shape[1], max_length, num_beams,
                top_k, float(length_penalty), constrained, int8_kv,
-               float(top_p), seed if samples(top_k, top_p) else 0,
-               collect_frames)
+               float(top_p), seed if samples(top_k, top_p) else 0)
         item = _WorkItem(np.asarray(clips, np.float32), key, frontend,
                          max_length, num_beams, float(length_penalty), int8_kv,
-                         top_k, float(top_p), seed, constrained,
-                         collect_frames)
+                         top_k, float(top_p), seed, constrained)
         self._queue.put(item)
         item.done.wait()
         if item.error is not None:
@@ -153,8 +157,6 @@ class BatchingSegmenter(Segmenter):
             # each item's [start, start + len) slice of the fused axis
             starts = np.cumsum([0] + [it.clips.shape[0] for it in group])
             tokens: List[List[int]] = []
-            probs: List[np.ndarray] = []
-            cluster: List[np.ndarray] = []
 
             def release_ready():
                 # an item whose windows are all decoded returns to its waiter
@@ -163,9 +165,6 @@ class BatchingSegmenter(Segmenter):
                     k = it.clips.shape[0]
                     if not it.done.is_set() and s + k <= len(tokens):
                         it.result = tokens[s:s + k]
-                        if head.collect_frames:
-                            it.result = (it.result, np.stack(probs[s:s + k]),
-                                         np.stack(cluster[s:s + k]))
                         it.done.set()
 
             noise = self._sampling_noise(head.seed, head.top_k, head.top_p)
@@ -178,12 +177,8 @@ class BatchingSegmenter(Segmenter):
                     _pad_rows(clips[pos:pos + real], batch), head.frontend,
                     head.max_length, head.num_beams, head.length_penalty,
                     head.int8_kv, head.top_k, head.top_p, head.constrained,
-                    noise, head.collect_frames)
+                    noise)
                 self.fused_batches += 1
-                if head.collect_frames:
-                    out, p, c = out
-                    probs += list(p[:real].cpu().numpy())
-                    cluster += list(c[:real].cpu().numpy())
                 tokens += out[:real].cpu().tolist()
                 pos += real
                 release_ready()
