@@ -85,7 +85,26 @@ then runs, in order:
      encoder layer, every batch the
      mel kernel once, and the loss must fall; then 5 steps with dropout and
      remat (the attention kernel twice per layer), and the trained
-     checkpoint answers one request.
+     checkpoint answers one request;
+ 10. speculative: the tiny checkpoint drafting for itself at float32 must
+     give plain greedy's token ids on the golden request; the base
+     checkpoint (bf16) with the tiny one drafting (spec_k 4) answers 10 s
+     and 30 s of audio beside plain greedy, in turns, its tokens held to
+     greedy's but for near ties, with exact mel and attention launch counts
+     (the draft's encoder included); an int8 target must launch the w8a16
+     kernel at the verify chunk's M; the segment CLI with
+     ``--draft_model_path``;
+ 11. train options: the train CLI on the base checkpoint with adafactor +
+     QAT 8 + the profiler hook (a trace written, losses falling, the
+     optimizer states' bytes and step times beside AdamW's), with GQA 8/2
+     uptraining + splice synthesis (its checkpoint then serves in bf16 and
+     in int8 with ``int8_kv``: the attention kernel at group 4, the int8
+     cross-attention at GQA), and with the device pool (launches per
+     block, steps/s beside the per-step loader's);
+ 12. pretrain: ``pretrain.run_pretraining`` of the base size over a pool
+     of every preset configuration and a 384 kHz one: the mel kernel at
+     n_fft 512 to 8192, the attention kernels once a layer a step, finite
+     losses, and the checkpoint answers a request.
 
 The last three lines of its output are the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. A failed phase
@@ -641,7 +660,9 @@ def quant_shapes():
     return shapes + [(512, 640)]
 
 
-QUANT_ROWS = (1, DECODE_ROWS, 48, 512)  # M: one row, a decode step, the prefill
+# M: one row, a decode step, the verify chunk of a speculative step (batch 4
+# x 5 tokens), the prefill, that chunk at batch 32 (the M > 64 route), 512
+QUANT_ROWS = (1, DECODE_ROWS, 20, 48, 160, 512)
 # (M, K, out) that no model has and the kernels take: K not a multiple of 16,
 # out not a multiple of 16, out below one column tile
 QUANT_RAGGED = [(5, 384, 96), (2, 100, 40), (1, 64, 6), (7, 130, 33)]
@@ -677,8 +698,9 @@ def qdot_library_call(bits: int, x, qt):
 
 def check_qdot(device, bits: int, floor_ms: float) -> dict:
     """K3 (bits 8) or K4 (bits 4) against its plain version at every
-    projection shape and M = 1, 16 (a decode step), 48 (the prefill) and
-    512, and at the ragged shapes. Kernel and plain version round alike and
+    projection shape and M = 1, 16 (a decode step), 20 and 160 (a
+    speculative verify chunk at batch 4 and 32), 48 (the prefill) and 512,
+    and at the ragged shapes. Kernel and plain version round alike and
     differ in the order of a float32 sum: held to 1e-3 of the largest
     output; a second call must give the same bits. Then the graph times of
     the base model's decode products at M 16 and 48 and their sum over a
@@ -972,17 +994,25 @@ def golden_phase(device) -> None:
 
 class StepCount:
     """Counts the decode loop's calls of ``decoder_step`` while it stands in
-    for it: all of them, and those of a single token."""
+    for it: all of them, those of a single token, and by model (the config
+    object it runs with) its calls and their rows (batch x chunk)."""
 
     def __init__(self, decode_module):
         self.module = decode_module
         self.inner = decode_module.decoder_step
         self.calls = self.single = 0
+        self.by_model = {}
 
     def __call__(self, params, cfg, xk, xv, input_ids, *args, **kwargs):
         self.calls += 1
         self.single += input_ids.shape[1] == 1
+        calls, rows = self.by_model.get(id(cfg), (0, set()))
+        self.by_model[id(cfg)] = (calls + 1, rows | {input_ids.numel()})
         return self.inner(params, cfg, xk, xv, input_ids, *args, **kwargs)
+
+    def of(self, cfg):
+        """(calls, set of row counts) of the model run with ``cfg``."""
+        return self.by_model.get(id(cfg), (0, set()))
 
     def __enter__(self):
         self.module.decoder_step = self
@@ -1746,6 +1776,7 @@ class StepProbe:
 
         def build(*args, **kwargs):
             step = probe.build(*args, **kwargs)
+            probe.optimizer = args[1]
 
             def timed_step(params, batch, gen):
                 i = len(probe.times)
@@ -1784,22 +1815,25 @@ class StepProbe:
         self.dataset_cls.collate = self.collate
 
 
-def train_run(data: str, model_folder: str, steps: int, extra=(),
-              profiled=None) -> StepProbe:
-    """``whisperseg_torch.cli.train.main`` on the shipped base checkpoint
-    (bf16 compute as shipped, float32 master weights, AdamW, the CLI's
-    default frame head) for ``steps`` steps, under a ``StepProbe``."""
-    from whisperseg_torch.cli import train as train_cli
-
-    argv = ["--initial_model_path",
-            os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad"),
-            "--model_folder", model_folder, "--train_dataset_folder", data,
+def train_argv(data: str, model_folder: str, steps: int, extra=()) -> list:
+    """The train CLI's arguments for ``steps`` steps on the shipped base
+    checkpoint (bf16 compute as shipped, float32 master weights, AdamW, the
+    CLI's default frame head), batch 4 of 2.5 s clips, lr 1e-4."""
+    return ["--initial_model_path", BASE_MODEL, "--model_folder", model_folder, "--train_dataset_folder", data,
             "--max_num_iterations", str(steps), "--batch_size", str(BATCH),
             "--total_spec_columns", "1000", "--max_length", "100",
             "--learning_rate", "1e-4", "--warmup_steps", "5",
             "--print_every", "5", "--num_workers", "4", *extra]
+
+
+def train_run(data: str, model_folder: str, steps: int, extra=(),
+              profiled=None) -> StepProbe:
+    """``whisperseg_torch.cli.train.main`` with :func:`train_argv`'s
+    arguments, under a ``StepProbe``."""
+    from whisperseg_torch.cli import train as train_cli
+
     with StepProbe(profiled) as probe:
-        train_cli.main(argv)
+        train_cli.main(train_argv(data, model_folder, steps, extra))
     return probe
 
 
@@ -1811,7 +1845,8 @@ def train_phase(device) -> dict:
     kernel once, no library attention kernel (SDPA, cuDNN) runs in the
     profiled steps, every loss is finite and the last five steps' mean loss
     is below the first five's. Returns the launches of K2 with the row
-    log-sum-exp (all of a step's K2 launches) and of the backward kernels."""
+    log-sum-exp (all of a step's K2 launches) and of the backward kernels,
+    and the median step time in ms."""
     import tempfile
 
     from whisperseg_torch.ops import attention, logmel
@@ -1908,7 +1943,496 @@ def train_phase(device) -> dict:
         if not table["onset"] or bwd or \
                 attention.launches != layers * logmel.launches:
             raise AssertionError(f"serving the trained checkpoint: {table}")
-    return train_launches
+    return train_launches, med
+
+
+# ------------------------------------------------------------- speculative
+
+BASE_MODEL = os.path.join(ROOT, "pretrained", "whisperseg-base-animal-vad")
+TINY_MODEL = os.path.join(ROOT, "pretrained", "whisperseg-tiny-animal-vad")
+SPEC_K = 4
+# (speculative) the serve phase's 10 s and 30 s audio, one trial each
+SPEC_REQUESTS = [(106, 10.0), (101, 30.0)]
+SPEC_MARGIN = 0.5  # a bf16 departure from greedy above this top-2 gap fails
+
+
+def _acceptance(stats: dict, before: dict) -> float:
+    """Mean tokens a row committed a target forward since ``before``."""
+    rows = int(stats["row_forwards"]) - int(before.get("row_forwards", 0))
+    return (int(stats["committed"]) - int(before.get("committed", 0))) / max(rows, 1)
+
+
+def _first_differences(seg, frontend, clips, want, got) -> list:
+    """(window, position, top-2 logit margin of the prediction there, along
+    ``want``) of each window whose tokens ``got`` departs from ``want``."""
+    from whisperseg_torch import tokenizer as tok
+
+    out = [(w, next(t for t, (a, b) in enumerate(zip(g, x)) if a != b))
+           for w, (g, x) in enumerate(zip(got, want)) if g != x]
+    if not out:
+        return []
+    rows = [r[:r.index(tok.EOT_ID) + 1] if tok.EOT_ID in r else r for r in want]
+    width = max(map(len, rows))
+    margins = top2_margins(seg, frontend, clips,
+                           [r + [tok.PAD_ID] * (width - len(r)) for r in rows])
+    return [(w, t, float(margins[w, t - 1])) for w, t in out]
+
+
+def speculative_phase(device) -> dict:
+    """Greedy speculative decoding (``Segmenter.set_draft_model``): the
+    tiny checkpoint drafting for itself at float32 must give plain greedy's
+    token ids on the golden request; the base checkpoint (bf16 as shipped)
+    with the tiny one drafting answers the serve phase's 10 s and 30 s audio
+    with one trial, timed beside plain greedy ``segment(num_beams=1)`` in
+    turns, each window's tokens held to greedy's (a departure fails only
+    where the top-2 logit margin is above SPEC_MARGIN); every batch launches
+    the mel kernel twice (the decode and the frame head's second pass) and
+    the attention kernel once a layer of the target's encoder, the draft's
+    and the frame pass's; then an int8 target, whose w8a16 kernel must run
+    at the verify chunk's M (48 launches a target call), and the segment
+    CLI with ``--draft_model_path``. Returns the launch counts."""
+    import tempfile
+
+    from whisperseg_torch import decode
+    from whisperseg_torch import segmenter as segmenter_module
+    from whisperseg_torch.audio.frontend import Frontend
+    from whisperseg_torch.audio.io import save_wav
+    from whisperseg_torch.checkpoint import load_checkpoint
+    from whisperseg_torch.cli import segment as segment_cli
+    from whisperseg_torch.ops import attention, logmel, quant
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts
+
+    start = time.perf_counter()
+    # float32: the tiny checkpoint drafting for itself on the golden request
+    with open(os.path.join(ROOT, "whisperseg_torch", "golden_tiny.json")) as f:
+        req = json.load(f)["request"]
+    params, cfg = load_checkpoint(TINY_MODEL)
+    cfg.compute_dtype = "float32"
+    seg = Segmenter(params, cfg, inference_dtype="float32", device=device)
+    dsc = seg.default_segmentation_config
+    clips, _ = seg.slice_audio_windows(
+        tone_bursts(req["seed"], sr=req["sr"], duration=req["duration"]),
+        req["sr"], dsc["spec_time_step"], req["num_trials"])
+    frontend = Frontend(req["sr"], dsc["spec_time_step"], dsc["min_frequency"])
+    max_length = int(dsc["max_length"])
+    greedy = seg._generate_tokens(clips, frontend, BATCH, max_length, 1, 1.0)
+    seg.set_draft_model(TINY_MODEL, spec_k=SPEC_K)  # prints its warning once
+    os.environ["WS_SPEC_NO_WARN"] = "1"
+    spec = seg._generate_tokens(clips, frontend, BATCH, max_length, 1, 1.0)
+    same = sum(a == b for a, b in zip(spec, greedy))
+    print(f"  float32, tiny drafting for tiny: {same} of {len(greedy)} windows' "
+          f"token ids identical to plain greedy; "
+          f"{_acceptance(seg.spec_stats, {}):.2f} tokens a row committed a "
+          f"target forward", flush=True)
+    if spec != greedy:
+        raise AssertionError("float32 speculative ids differ from greedy")
+    del seg
+
+    # bf16: the base checkpoint with the tiny one drafting
+    target = Segmenter.from_pretrained(BASE_MODEL, device=device)
+    target.set_draft_model(TINY_MODEL, spec_k=SPEC_K)
+    draft = target.draft
+    dsc = target.default_segmentation_config
+    frontend = Frontend(SR, dsc["spec_time_step"], dsc["min_frequency"])
+    max_length = int(dsc["max_length"])
+    warm = tone_bursts(99, duration=2.5)
+    for on in (False, True):
+        target.draft = draft if on else None
+        target.segment(warm, SR, num_beams=1)
+    counts = {}
+    for seed, duration in SPEC_REQUESTS:
+        audio = tone_bursts(seed, duration=duration)
+        clips, _ = target.slice_audio_windows(audio, SR, SPEC_TIME_STEP, 1)
+        batches = -(-len(clips) // BATCH)
+        times = {False: [], True: []}
+        for on in (False, True, True, False):  # in turns
+            target.draft = draft if on else None
+            before = dict(target.spec_stats)
+            logmel.launches = attention.launches = 0
+            with StepCount(decode) as steps:
+                table, dt = timed(lambda: target.segment(audio, SR,
+                                                         num_beams=1))
+            times[on].append(dt)
+            if on:
+                accepted = _acceptance(target.spec_stats, before)
+                spec_table = table
+                spec_steps = (steps.of(target.config)[0],
+                              steps.of(draft[1])[0])
+                k1, k2 = logmel.launches, attention.launches
+            else:
+                plain_table = table
+        plain_ms, spec_ms = min(times[False]) * 1e3, min(times[True]) * 1e3
+        print(f"  request seed {seed}: {duration:4.1f} s, {len(clips)} windows "
+              f"({batches} batches): greedy {plain_ms:.1f} ms, speculative "
+              f"{spec_ms:.1f} ms (x{plain_ms / spec_ms:.2f} of greedy's speed); "
+              f"{accepted:.2f} tokens a row committed a target forward; "
+              f"segments {len(plain_table['onset'])} greedy, "
+              f"{len(spec_table['onset'])} speculative; launches K1 {k1}, K2 "
+              f"{k2}; decoder steps target {spec_steps[0]}, draft "
+              f"{spec_steps[1]}", flush=True)
+        # the target's encoder and the draft's on the decode batches, the
+        # target's again on the frame pass's
+        want_k2 = batches * (draft[1].encoder_layers
+                             + 2 * target.config.encoder_layers)
+        if (k1, k2) != (2 * batches, want_k2):
+            raise AssertionError(f"speculative launches K1 {k1}, K2 {k2}; want "
+                                 f"{2 * batches}, {want_k2}")
+        target.draft = None
+        greedy = target._generate_tokens(clips, frontend, BATCH, max_length, 1,
+                                         1.0)
+        target.draft = draft
+        spec = target._generate_tokens(clips, frontend, BATCH, max_length, 1,
+                                       1.0)
+        diffs = _first_differences(target, frontend, clips, greedy, spec)
+        print(f"    tokens: {len(clips) - len(diffs)} of {len(clips)} windows "
+              f"identical to greedy; first differences (window, position, "
+              f"top-2 margin): {[(w, t, round(m, 4)) for w, t, m in diffs]}",
+              flush=True)
+        if any(m > SPEC_MARGIN for _, _, m in diffs):
+            raise AssertionError(f"speculative tokens depart from greedy "
+                                 f"beyond a near tie: {diffs}")
+        if not spec_table["onset"]:
+            raise AssertionError(f"request seed {seed}: empty table")
+        counts = {"melproject": k1, "attention_hm": k2}
+
+    # an int8 target: the verify chunk's products on the w8a16 kernel
+    qtarget = Segmenter.from_pretrained(BASE_MODEL, inference_dtype="int8",
+                                        device=device)
+    qtarget.set_draft_model(TINY_MODEL, spec_k=SPEC_K)
+    qtarget.segment(warm, SR, num_beams=1)
+    quant.launches_w8a16 = 0
+    audio = tone_bursts(106, duration=10.0)
+    with StepCount(decode) as steps:
+        table, dt = timed(lambda: qtarget.segment(audio, SR, num_beams=1))
+    k3, (calls, rows) = quant.launches_w8a16, steps.of(qtarget.config)
+    print(f"  int8 target, 10 s: {len(table['onset'])} segments in "
+          f"{dt * 1e3:.1f} ms; w8a16 launches {k3} over {calls} target calls "
+          f"at M {sorted(rows)}", flush=True)
+    if k3 != 8 * qtarget.config.decoder_layers * calls \
+            or BATCH * (SPEC_K + 1) not in rows:
+        raise AssertionError(f"int8 target: w8a16 launches {k3} for {calls} "
+                             f"calls at M {sorted(rows)}")
+    counts["qdot_w8a16"] = k3
+
+    # the segment CLI with --draft_model_path
+    inner, used = segmenter_module.generate_speculative, []
+
+    def counted(*args, **kwargs):
+        used.append(1)
+        return inner(*args, **kwargs)
+    segmenter_module.generate_speculative = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            wav, csv_path = os.path.join(tmp, "rec.wav"), os.path.join(tmp, "o.csv")
+            save_wav(wav, tone_bursts(101, duration=30.0), SR)
+            t0 = time.perf_counter()
+            segment_cli.main(["--model_path", BASE_MODEL, "--audio_path", wav,
+                              "--csv_save_path", csv_path, "--num_beams", "1",
+                              "--draft_model_path", TINY_MODEL, "--spec_k",
+                              str(SPEC_K)])
+            dt = time.perf_counter() - t0
+            with open(csv_path) as f:
+                lines = f.read().splitlines()
+    finally:
+        segmenter_module.generate_speculative = inner
+    print(f"  segment CLI --draft_model_path, 30 s: {len(lines) - 1} rows in "
+          f"{dt:.2f} s, {len(used)} speculative batches", flush=True)
+    if len(lines) < 2 or not used:
+        raise AssertionError(f"segment CLI with a draft: {lines[:3]}, {used}")
+    print(f"  speculative phase {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return counts
+
+
+# ------------------------------------------------------------ train options
+
+OPTION_STEPS = 15        # profile_dir traces steps 10-14
+GQA_STEPS = 80           # lr 2e-4: the mean-pooled K/V heads need them
+POOL_STEPS = 20          # two epoch blocks: 8 files x 5 crops, batch 4
+
+
+def _state_bytes(optimizer) -> int:
+    return sum(t.numel() * t.element_size() for st in optimizer.state.values()
+               for t in st.values() if isinstance(t, torch.Tensor))
+
+
+class BlockProbe:
+    """Stands in for ``pretrain.build_scan_train_step`` while entered: each
+    call (one epoch block, or one pretraining call) is synchronized and
+    timed, and the launches of K1 since the previous call (the block's
+    collate) and of K2, dkv and dq in the call are recorded."""
+
+    def __init__(self):
+        from whisperseg_torch import pretrain
+
+        self.module = pretrain
+        self.blocks = []
+
+    def __enter__(self):
+        from whisperseg_torch.ops import attention, logmel
+
+        self.inner = self.module.build_scan_train_step
+        logmel.launches = attention.launches = attention.launches_lse = 0
+        attention.launches_bwd_dkv = attention.launches_bwd_dq = 0
+        probe, mark = self, [0]
+
+        def build(*args, **kwargs):
+            multi = probe.inner(*args, **kwargs)
+
+            def timed_multi(params, pool, idx, gen):
+                k1 = logmel.launches - mark[0]
+                before = (attention.launches_lse, attention.launches_bwd_dkv,
+                          attention.launches_bwd_dq)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = multi(params, pool, idx, gen)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                after = (attention.launches_lse, attention.launches_bwd_dkv,
+                         attention.launches_bwd_dq)
+                mark[0] = logmel.launches
+                probe.blocks.append({
+                    "steps": int(idx.shape[0]), "s": dt, "k1": k1,
+                    "k2_dkv_dq": tuple(a - b for a, b in zip(after, before)),
+                    "losses": losses.tolist(),
+                    "pool_mib": pool["input_features"].numel() * 4 / 2 ** 20})
+                return losses
+            return timed_multi
+
+        self.module.build_scan_train_step = build
+        return self
+
+    def __exit__(self, *exc):
+        self.module.build_scan_train_step = self.inner
+
+
+def train_options_phase(device, adamw_step_ms: float) -> None:
+    """The trainer's options on the base checkpoint at full width and
+    depth, through the train CLI: (1) ``--optimizer adafactor --qat_bits 8
+    --profile_dir`` for OPTION_STEPS steps: a Chrome trace written, losses
+    finite and falling, K2 (with the row log-sum-exp), dkv and dq once a
+    layer a step; its optimizer state beside AdamW's, and both optimizers'
+    step alone; (2) ``--gqa_kv_heads 2 --synth_augment 4`` for GQA_STEPS
+    steps, the same launches at group 4, then its checkpoint answers a
+    request in bf16 (K2 at group 4) and in int8 with ``int8_kv`` (K5 at
+    GQA, once a layer a single-token step) with non-empty tables; (3)
+    ``--device_pool 1`` for POOL_STEPS steps: each block launches K1 once
+    (one frontend configuration) and K2, dkv and dq once a layer a step,
+    and its steps/s beside the per-step loader's."""
+    import tempfile
+
+    from whisperseg_torch import decode
+    from whisperseg_torch.cli import train as train_cli
+    from whisperseg_torch.ops import attention, cross_attention, logmel, quant
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts, write_tone_dataset
+    from whisperseg_torch.training import trainer
+
+    with open(os.path.join(BASE_MODEL, "config.json")) as f:
+        layers = json.load(f)["encoder_layers"]
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_tone_dataset(os.path.join(tmp, "data"), TRAIN_FILES,
+                                  seed=500)
+        # (1) adafactor + QAT 8 + the profiler hook
+        trace_dir = os.path.join(tmp, "trace")
+        torch.cuda.reset_peak_memory_stats()
+        probe = train_run(data, os.path.join(tmp, "adafactor"), OPTION_STEPS,
+                          extra=("--optimizer", "adafactor", "--qat_bits", "8",
+                                 "--profile_dir", trace_dir))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+        losses = probe.losses
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        med = float(np.median([t * 1e3 for t in probe.times[TRAIN_TIMED_FROM:]]))
+        opt = probe.optimizer
+        n_params = sum(p.numel() for g in opt.param_groups for p in g["params"])
+        factored = _state_bytes(opt)
+        adamw = torch.optim.AdamW(
+            [{"params": g["params"], "weight_decay": g["weight_decay"]}
+             for g in opt.param_groups], lr=1e-4)
+        adafactor_ms = cuda_ms(opt.step, 5)
+        adamw_ms = cuda_ms(adamw.step, 5)
+        # QAT's own cost: the base model's 16 stacked projection leaves put
+        # on their int8 grid, as every step's forward does
+        with open(os.path.join(BASE_MODEL, "config.json")) as f:
+            d = json.load(f)["d_model"]
+        shapes = [(layers, d, d)] * 12 + [(layers, d, 4 * d),
+                                          (layers, 4 * d, d)] * 2
+        leaves = [torch.randn(sh, device=device) for sh in shapes]
+        qat_ms = cuda_ms(lambda: [quant.ste_quant8(w) for w in leaves], 5)
+        del leaves
+        print(f"  adafactor + QAT 8: {len(losses)} steps, median {med:.2f} ms a "
+              f"step (AdamW, the train phase: {adamw_step_ms:.2f} ms); loss "
+              f"first 5 {first:.4f}, last 5 {last:.4f}; launches per step (K2, "
+              f"dkv, dq) {sorted(set(probe.launches))}; trace files {traces}; "
+              f"peak {peak:.0f} MiB", flush=True)
+        print(f"  optimizer state for {n_params} parameters: adafactor "
+              f"{factored / 2 ** 20:.2f} MiB, AdamW {_state_bytes(adamw) / 2 ** 20:.2f}"
+              f" MiB (after one step); optimizer step alone (CUDA events): "
+              f"adafactor {adafactor_ms:.3f} ms, AdamW {adamw_ms:.3f} ms; "
+              f"the int8 grid of the 16 projection leaves {qat_ms:.3f} ms",
+              flush=True)
+        del adamw
+        if not traces or not all(np.isfinite(losses)) or not last < first \
+                or set(probe.launches) != {(layers, layers, layers)}:
+            raise AssertionError(f"adafactor + QAT run: traces {traces}, losses "
+                                 f"{losses}, launches {probe.launches}")
+
+        # (2) GQA uptraining with splice synthesis
+        gqa = train_run(data, os.path.join(tmp, "gqa"), GQA_STEPS,
+                        extra=("--gqa_kv_heads", "2", "--synth_augment", "4",
+                               "--learning_rate", "2e-4"))
+        gmed = float(np.median([t * 1e3 for t in gqa.times[TRAIN_TIMED_FROM:]]))
+        print(f"  GQA 8/2 + 4 synthesized files: {len(gqa.losses)} steps, median "
+              f"{gmed:.2f} ms a step; loss first 5 "
+              f"{np.mean(gqa.losses[:5]):.4f}, last 5 "
+              f"{np.mean(gqa.losses[-5:]):.4f}; launches per step "
+              f"{sorted(set(gqa.launches))}", flush=True)
+        if set(gqa.launches) != {(layers, layers, layers)} \
+                or not all(np.isfinite(gqa.losses)):
+            raise AssertionError(f"GQA run: launches {gqa.launches}, losses "
+                                 f"{gqa.losses}")
+        final = os.path.join(tmp, "gqa", "final_checkpoint")
+        # the first training recording (a short uptraining leaves held-out
+        # audio without segments more often than not)
+        audio = tone_bursts(500, duration=10.0)
+        for dtype, int8_kv in (("bfloat16", False), ("int8", True)):
+            gseg = Segmenter.from_pretrained(final, inference_dtype=dtype,
+                                             device=device)
+            gseg.segment(tone_bursts(99, duration=2.5), SR, int8_kv=int8_kv)
+            logmel.launches = attention.launches = cross_attention.launches = 0
+            quant.launches_w8a16 = 0
+            with StepCount(decode) as steps:
+                table, dt = timed(lambda: gseg.segment(audio, SR,
+                                                       int8_kv=int8_kv))
+            k1, k2, k5 = logmel.launches, attention.launches, cross_attention.launches
+            print(f"  the GQA checkpoint (kv_heads {gseg.config.kv_heads}), "
+                  f"{dtype}{' + int8_kv' if int8_kv else ''}: 10 s -> "
+                  f"{len(table['onset'])} segments in {dt:.3f} s; launches K1 "
+                  f"{k1}, K2 {k2}, K3 {quant.launches_w8a16}, K5 {k5} "
+                  f"({steps.single} single-token steps)", flush=True)
+            want_k5 = layers * steps.single if int8_kv else 0
+            if gseg.config.kv_heads != 2 or k2 != layers * k1 or k5 != want_k5 \
+                    or not k1 or not table["onset"]:
+                raise AssertionError(f"GQA checkpoint {dtype}: table {table}, "
+                                     f"K1 {k1}, K2 {k2}, K5 {k5}")
+            del gseg
+
+        # (3) the device pool, beside the per-step loader without a probe
+        stamps = []
+        build = trainer.build_train_step
+
+        def stamped(*args, **kwargs):
+            step = build(*args, **kwargs)
+
+            def run(*a):
+                stamps.append(time.perf_counter())
+                return step(*a)
+            return run
+        trainer.build_train_step = stamped
+        try:
+            train_cli.main(train_argv(data, os.path.join(tmp, "loader"),
+                                      POOL_STEPS))
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        finally:
+            trainer.build_train_step = build
+        loader_rate = (len(stamps) - 1 - TRAIN_TIMED_FROM) / (
+            stamps[-1] - stamps[TRAIN_TIMED_FROM])
+        with BlockProbe() as blocks:
+            train_cli.main(train_argv(data, os.path.join(tmp, "pool"),
+                                      POOL_STEPS, extra=("--device_pool", "1")))
+        for i, b in enumerate(blocks.blocks):
+            print(f"    block {i}: {b['steps']} steps in {b['s'] * 1e3:.1f} ms "
+                  f"({b['steps'] / b['s']:.2f} steps/s); launches K1 {b['k1']}, "
+                  f"(K2, dkv, dq) {b['k2_dkv_dq']}; pool features "
+                  f"{b['pool_mib']:.1f} MiB; losses "
+                  f"{', '.join(f'{x:.3f}' for x in b['losses'])}", flush=True)
+        last_block = blocks.blocks[-1]
+        print(f"  device pool: {last_block['steps'] / last_block['s']:.2f} "
+              f"steps/s in its last block; the per-step loader "
+              f"{loader_rate:.2f} steps/s (steps {TRAIN_TIMED_FROM}.."
+              f"{POOL_STEPS - 1}, host clock, unsynchronized steps)", flush=True)
+        if len(blocks.blocks) != 2 or any(
+                b["k1"] != 1 or b["k2_dkv_dq"] != (layers * b["steps"],) * 3
+                or not all(np.isfinite(b["losses"])) for b in blocks.blocks):
+            raise AssertionError(f"device pool blocks {blocks.blocks}")
+    print(f"  train-options phase {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+
+# ----------------------------------------------------------------- pretrain
+
+# the presets' frontend configurations (n_fft 512, 1024, 4096) and one above
+# 300 kHz, whose n_fft is 8192
+PRETRAIN_EXTRA_CONFIG = (384000, 0.0005, 35000.0)
+PRETRAIN_MODEL, PRETRAIN_STEPS, PRETRAIN_CALL = "base", 6, 3
+
+
+def pretrain_phase(device) -> None:
+    """``pretrain.run_pretraining`` of the base size (random init, frame
+    head of 5 clusters, dropout 0.1, batch 8) over a pool of one chunk of 4
+    examples for each preset configuration and the 384 kHz one, refreshed
+    on the worker thread after the first call: PRETRAIN_STEPS steps in
+    calls of PRETRAIN_CALL. K1 must run at every configuration's n_fft (512
+    to 8192), K2, dkv and dq once a layer a step, the losses be finite; the
+    checkpoint then answers a request."""
+    import tempfile
+
+    from whisperseg_torch import pretrain
+    from whisperseg_torch.audio import frontend as frontend_module
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts
+
+    start = time.perf_counter()
+    n_ffts = []
+    inner = frontend_module.melproject_reim
+
+    def recorded(re, *args, **kwargs):
+        n_ffts.append(2 * (re.shape[-2] - 1))
+        return inner(re, *args, **kwargs)
+    spec = pretrain.PoolSpec(chunk=4, configs=pretrain.PRETRAIN_CONFIGS
+                             + (PRETRAIN_EXTRA_CONFIG,))
+    with tempfile.TemporaryDirectory() as tmp:
+        args = pretrain.PretrainArgs(
+            model=PRETRAIN_MODEL, model_folder=os.path.join(tmp, "pt"),
+            steps=PRETRAIN_STEPS, batch_size=8,
+            pool_items=len(spec.configs) * spec.chunk,
+            refresh_every=PRETRAIN_CALL, steps_per_call=PRETRAIN_CALL,
+            warmup_steps=2, save_every=PRETRAIN_STEPS, spec=spec)
+        frontend_module.melproject_reim = recorded
+        try:
+            with BlockProbe() as calls:
+                final = pretrain.run_pretraining(args)
+        finally:
+            frontend_module.melproject_reim = inner
+        with open(os.path.join(args.model_folder, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        for i, c in enumerate(calls.blocks):
+            print(f"    call {i}: {c['steps']} steps in {c['s'] * 1e3:.1f} ms; "
+                  f"(K2, dkv, dq) {c['k2_dkv_dq']}; pool features "
+                  f"{c['pool_mib']:.1f} MiB; losses "
+                  f"{', '.join(f'{x:.3f}' for x in c['losses'])}", flush=True)
+        print(f"  K1 launches {len(n_ffts)} at n_fft {sorted(set(n_ffts))}; "
+              f"logged {[(r['current_step'], round(r['train/loss'], 4), round(r['val/loss'], 4)) for r in records]}",
+              flush=True)
+        seg = Segmenter.from_pretrained(final, device=device)
+        table, dt = timed(lambda: seg.segment(tone_bursts(7, duration=2.5), SR,
+                                              max_length=100))
+        print(f"  the pretrained checkpoint: a 2.5 s request -> "
+              f"{len(table['onset'])} segments in {dt:.3f} s", flush=True)
+        want = {512, 1024, 4096, 8192}
+        layers = seg.config.encoder_layers
+        if not want <= set(n_ffts) or any(
+                c["k2_dkv_dq"] != (layers * c["steps"],) * 3
+                or not all(np.isfinite(c["losses"])) for c in calls.blocks) \
+                or not all(np.isfinite([r["train/loss"], r["val/loss"]]).all()
+                           for r in records) or set(table) != {"onset", "offset", "cluster"}:
+            raise AssertionError(f"pretraining: n_fft {set(n_ffts)}, calls "
+                                 f"{calls.blocks}, logged {records}")
+    print(f"  pretrain phase {time.perf_counter() - start:.1f} s", flush=True)
 
 
 # --------------------------------------------------------------------- main
@@ -2008,7 +2532,19 @@ def main() -> int:
 
     print("[train] base checkpoint through the train CLI, bf16 compute, "
           "float32 master weights, AdamW", flush=True)
-    launches.update(train_phase(device))
+    train_launches, adamw_step_ms = train_phase(device)
+    launches.update(train_launches)
+
+    print(f"[speculative] base checkpoint (bf16) with the tiny checkpoint "
+          f"drafting, spec_k {SPEC_K}, greedy", flush=True)
+    speculative_phase(device)
+    print("[train options] base checkpoint through the train CLI: adafactor "
+          "+ QAT + profiler, GQA + splice synthesis, the device pool",
+          flush=True)
+    train_options_phase(device, adamw_step_ms)
+    print("[pretrain] synthetic pretraining of the base size over a pool on "
+          "the card", flush=True)
+    pretrain_phase(device)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"] > 0:

@@ -373,8 +373,6 @@ def test_out_of_slice_options_raise(segmenters, tmp_path):
             "onset", "offset", "cluster"}
     with pytest.raises(NotImplementedError, match="HF"):
         Segmenter.from_pretrained(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        seg.set_draft_model(TINY)
     params, cfg = load_checkpoint(TINY)
     with pytest.raises(ValueError, match="unsupported inference_dtype"):
         Segmenter(params, cfg, inference_dtype="int2", device="cpu")

@@ -376,9 +376,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--model_path", TINY, "--audio_path", "x.wav",
                   "--csv_save_path", str(tmp_path / "a.csv")])
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        segment_service.main(["--model_path", TINY, "--device", "cpu",
-                              "--warmup", "0", "--draft_model_path", TINY])
 
 
 def test_main_warms_up_and_serves_on_the_cpu(monkeypatch):

@@ -289,9 +289,7 @@ def test_segmenter_on_live_training_params_sees_updates():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("optimizer", "adafactor"), ("qat_bits", 8), ("device_pool", True),
-    ("tp", 2), ("fsdp", True), ("gqa_kv_heads", 1), ("synth_augment", 4),
-    ("use_wandb", True), ("profile_dir", "trace"), ("n_device", 2)])
+    ("tp", 2), ("fsdp", True), ("use_wandb", True), ("n_device", 2)])
 def test_later_slice_options_raise_naming_their_roadmap_item(field, value,
                                                              tmp_path):
     args = tt.TrainArgs(initial_model_path="tiny", device="cpu",

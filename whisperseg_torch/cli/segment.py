@@ -40,7 +40,8 @@ def build_parser():
     parser.add_argument("--num_trials", default=1, type=int)
     parser.add_argument("--num_beams", default=4, type=int)
     parser.add_argument("--draft_model_path", default=None,
-                        help="speculative decoding: not ported yet")
+                        help="draft checkpoint for greedy speculative decoding "
+                             "(Segmenter.set_draft_model)")
     parser.add_argument("--spec_k", default=4, type=int,
                         help="Draft tokens per speculative step")
     parser.add_argument("--merge_gap_ms", default=None, type=float,

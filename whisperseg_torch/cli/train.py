@@ -4,9 +4,8 @@ flags, plus ``--device``).
     python -m whisperseg_torch.cli.train --initial_model_path DIR \
         --model_folder OUT --train_dataset_folder DATA
 
-Options of later slices (adafactor, QAT, device_pool, GQA uptraining,
-splice synthesis, wandb, tp/fsdp/several devices) raise
-``NotImplementedError`` naming their ROADMAP item.
+``--use_wandb`` and several devices (``--tp``, ``--fsdp``, ``--n_device``
+above 1) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,9 +50,12 @@ def build_parser():
     p.add_argument("--freeze_encoder", type=int, default=0)
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "adafactor"],
-                   help="adafactor is not ported yet")
+                   help="adafactor: factored second moments, almost no "
+                        "optimizer state")
     p.add_argument("--qat_bits", type=int, default=0, choices=[0, 4, 8],
-                   help="quantization-aware training (not ported yet)")
+                   help="quantization-aware training: projection weights on "
+                        "their int8 / int4 grid in the forward, float32 "
+                        "master weights (straight-through gradient)")
     p.add_argument("--timestamp_loss_weight", type=float, default=1.0,
                    help=">1 upweights timestamp-token targets in the loss "
                         "(boundary-accuracy lever; segment F1)")
@@ -78,7 +80,8 @@ def build_parser():
                    help="Gaussian stddev (grid positions) of the soft "
                         "onset/offset event targets for the frame head")
     p.add_argument("--synth_augment", type=int, default=0,
-                   help="splice-synthesized training files (not ported yet)")
+                   help="add N splice-synthesized training files built from "
+                        "the training split's syllables and noise beds")
     p.add_argument("--spec_augment", type=int, default=0,
                    help="SpecAugment frequency/time masking on the training "
                         "features (regularizer for small datasets)")
@@ -94,9 +97,13 @@ def build_parser():
                    help="recompute each layer's activations in the backward "
                         "(less device memory, more work)")
     p.add_argument("--device_pool", type=int, default=0,
-                   help="device-resident epoch blocks (not ported yet)")
+                   help="epoch blocks of crops held on the device, each "
+                        "trained in one call with on-device batch gathers")
     p.add_argument("--gqa_kv_heads", type=int, default=0,
-                   help="GQA uptraining (not ported yet)")
+                   help="convert the initial model to this many K/V heads "
+                        "(mean-pooled groups), then train")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler trace of steps 10-14 here")
     p.add_argument("--device", default=None,
                    help="torch device to train on; the CUDA card unless "
                         "'cpu' is given")
@@ -151,6 +158,7 @@ def main(argv=None):
         project=a.project,
         run_name=a.run_name,
         use_wandb=bool(a.use_wandb),
+        profile_dir=a.profile_dir,
         device=a.device,
     )
     run_training(args)

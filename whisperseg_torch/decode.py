@@ -1,10 +1,10 @@
 """Batched autoregressive generation: greedy search, sampling, constrained
-decoding and banked beam search.
+decoding, banked beam search and greedy speculative decoding.
 
 The port of ``whisperseg_tpu/decode.py`` (``generate``, ``_generate_greedy``,
-``_generate_beam``, the grammar and the samplers). JAX's ``lax.while_loop``
-becomes a Python loop that exits early; its condition is read on the host once
-per step.
+``generate_speculative``, ``_generate_beam``, the grammar and the samplers).
+JAX's ``lax.while_loop`` becomes a Python loop that exits early; its
+condition is read on the host once per step (per iteration, speculative).
 
 Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
 ``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
@@ -205,6 +205,137 @@ def _generate_greedy(params, cfg, enc_out, max_length: int,
         finished = finished | (cur == tok.EOT_ID)
         tokens[:, pos + 1] = cur
         pos += 1
+    return tokens
+
+
+# --------------------------------------------------------------- speculative
+
+
+@torch.no_grad()
+def generate_speculative(params, cfg: WhisperConfig, draft_params,
+                         draft_cfg: WhisperConfig, features: torch.Tensor,
+                         max_length: int = 448, spec_k: int = 4, enc_out=None,
+                         stats: Optional[dict] = None) -> torch.Tensor:
+    """Greedy speculative decoding: the draft model proposes ``spec_k``
+    tokens an iteration, the target verifies them in one forward over the
+    chunk ``[cur, d_1 .. d_k]``, and the longest matching prefix plus the
+    target's own next token are committed. The result is the target's greedy
+    transcript as chunked verification forwards compute it (in bf16 a chunk's
+    products sum in another order than single-token steps, so a near tie may
+    turn); the acceptance rate only moves the speed.
+
+    Cache slots are decoupled from sequence positions (``decoder_step``'s
+    slot mode): every iteration takes ``spec_k + 1`` slots at one cursor for
+    all rows, each row's history lives in a ``slot_valid`` map (rejected
+    drafts stay masked) and its true position in ``tp``. The draft runs
+    ``spec_k + 1`` single-token steps an iteration, the last one ingesting
+    its own final draft, so that every committed token's K/V is in both
+    caches. Both encoders read the same ``features`` [B, mel, T]; ``enc_out``
+    is the target's encoder output when the caller has it. The loop ends
+    when every row has finished (read on the host once an iteration) or the
+    slots run out. ``stats``, when given, gains ``verify_forwards`` (the
+    target's chunk forwards) and ``committed`` (tokens committed, a device
+    scalar)."""
+    if cfg.vocab_size != draft_cfg.vocab_size:
+        raise ValueError("the draft and the target must share the vocabulary")
+    k = spec_k
+    enc_t = (encoder_forward(params, cfg, features) if enc_out is None
+             else enc_out)
+    enc_d = encoder_forward(draft_params, draft_cfg, features)
+    batch, s_t = enc_t.shape[:2]
+    s_d = enc_d.shape[1]
+    device = enc_t.device
+    xk_t, xv_t = precompute_cross_kv(params, cfg, enc_t)
+    xk_d, xv_d = precompute_cross_kv(draft_params, draft_cfg, enc_d)
+
+    prompt = _prompt(batch, device)
+    pl = prompt.shape[1]
+    max_slots = pl + (max_length - pl) * (k + 1)
+    ck_t, cv_t = init_cache(cfg, batch, max_slots, device)
+    ck_d, cv_d = init_cache(draft_cfg, batch, max_slots, device)
+    tokens = torch.full((batch, max_length), tok.PAD_ID, dtype=torch.long,
+                        device=device)
+    tokens[:, :pl] = prompt
+
+    # prefill both models (slots are positions for the prompt)
+    logits, ck_t, cv_t = decoder_step(params, cfg, xk_t, xv_t, prompt, 0,
+                                      ck_t, cv_t, cross_seq_len=s_t)
+    decoder_step(draft_params, draft_cfg, xk_d, xv_d, prompt, 0, ck_d, cv_d,
+                 cross_seq_len=s_d)
+    cur = torch.argmax(logits[:, -1].float(), dim=-1)
+    tokens[:, pl] = cur
+    finished = cur == tok.EOT_ID
+    tp = torch.full((batch,), pl + 1, dtype=torch.long, device=device)
+    cols_s = torch.arange(max_slots, device=device)
+    slot_valid = (cols_s < pl)[None].repeat(batch, 1)
+    cols_k = torch.arange(k + 1, device=device)
+    cols_len = torch.arange(max_length, device=device)
+    pad = torch.full((batch, 1), tok.PAD_ID, dtype=torch.long, device=device)
+    committed = torch.zeros((), dtype=torch.long, device=device)
+    row_forwards = torch.zeros((), dtype=torch.long, device=device)
+    forwards = 0
+
+    slot0 = pl
+    while slot0 + k + 1 <= max_slots and not bool(finished.all()):
+        # draft: k proposals, then one step that ingests the last of them
+        x_j, drafts = cur, []
+        for j in range(k + 1):
+            spec_prefix = (cols_s >= slot0) & (cols_s < slot0 + j)
+            dl, ck_d, cv_d = decoder_step(
+                draft_params, draft_cfg, xk_d, xv_d, x_j[:, None], slot0 + j,
+                ck_d, cv_d, cross_seq_len=s_d, truepos=tp - 1 + j,
+                slot_valid=slot_valid | spec_prefix[None])
+            x_j = torch.argmax(dl[:, -1].float(), dim=-1)
+            if j < k:
+                drafts.append(x_j)
+        drafts = torch.stack(drafts, dim=1)                        # [B, k]
+
+        # verify: one target forward over [cur, d_1 .. d_k]
+        chunk = torch.cat([cur[:, None], drafts], dim=1)           # [B, k+1]
+        tl, ck_t, cv_t = decoder_step(
+            params, cfg, xk_t, xv_t, chunk, slot0, ck_t, cv_t,
+            cross_seq_len=s_t, truepos=tp - 1, slot_valid=slot_valid)
+        forwards += 1
+        g = torch.argmax(tl.float(), dim=-1)                       # [B, k+1]
+
+        # the longest matching prefix, then the target's own next token
+        accepted = torch.cumprod((drafts == g[:, :k]).long(), dim=1).sum(dim=1)
+        bonus = torch.gather(g, 1, accepted[:, None])[:, 0]
+        commit = torch.where(
+            cols_k[None] < accepted[:, None], torch.cat([drafts, pad], dim=1),
+            torch.where(cols_k[None] == accepted[:, None], bonus[:, None],
+                        tok.PAD_ID))                               # [B, k+1]
+
+        # commits stop at (and include) the first EOT, and at the budget
+        is_eot = commit == tok.EOT_ID
+        any_eot = is_eot.any(dim=1)
+        first_eot = torch.argmax(is_eot.int(), dim=1)
+        count = torch.where(any_eot, first_eot + 1, accepted + 1)
+        count = torch.where(finished, 0, count)
+        count = torch.minimum(count, max_length - tp)
+
+        # committed tokens at each row's true positions
+        rel = (cols_len[None] - tp[:, None]).clamp(0, k)
+        vals = torch.gather(commit, 1, rel)                        # [B, L]
+        write = (cols_len[None] >= tp[:, None]) & \
+            (cols_len[None] < (tp + count)[:, None])
+        tokens = torch.where(write, vals, tokens)
+
+        # the slots of cur and of the committed drafts become history
+        n_drafts = torch.minimum(accepted, count)
+        slot_valid = slot_valid | ((cols_s[None] >= slot0)
+                                   & (cols_s[None] <= slot0 + n_drafts[:, None])
+                                   & ~finished[:, None])
+        committed = committed + count.sum()
+        row_forwards = row_forwards + (~finished).sum()
+        finished = finished | any_eot | (tp + count >= max_length)
+        cur = torch.where(finished, tok.PAD_ID, bonus)
+        tp = tp + count
+        slot0 += k + 1
+    if stats is not None:
+        stats["verify_forwards"] = stats.get("verify_forwards", 0) + forwards
+        stats["row_forwards"] = stats.get("row_forwards", 0) + row_forwards
+        stats["committed"] = stats.get("committed", 0) + committed
     return tokens
 
 

@@ -450,7 +450,9 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, device
 
 def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
                  input_ids: torch.Tensor, pos0: int, cache_k, cache_v,
-                 cross_seq_len: int = 0):
+                 cross_seq_len: int = 0,
+                 truepos: Optional[torch.Tensor] = None,
+                 slot_valid: Optional[torch.Tensor] = None):
     """Run the decoder over a chunk of new tokens ``input_ids`` [B, Lc] at
     absolute positions ``pos0 .. pos0 + Lc - 1`` (prefill: the prompt; decode:
     one token). Query ``qi`` of the chunk sees cache positions
@@ -460,23 +462,43 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     token then goes through the int8 cross-attention kernel, a longer chunk
     (the prefill) dequantizes the pairs once.
 
+    Slot mode (speculative decoding, decode.generate_speculative): with
+    ``truepos`` [B] (each row's sequence position of ``input_ids[:, 0]``)
+    and ``slot_valid`` [B, max_len] (the cache slots that hold committed
+    history), ``pos0`` is a cache slot, the same for every row: the chunk's
+    K/V go to slots ``pos0 .. pos0 + Lc - 1``, the position embeddings come
+    from ``truepos`` (clipped to the table), and query ``qi`` sees the
+    valid slots below ``pos0`` and the chunk's slots up to its own. Slots
+    at or past ``pos0 + Lc`` are masked for every query, so attention runs
+    over the first ``pos0 + Lc`` slots only (the JAX package attends over
+    all ``max_len`` of them, the masked ones weighing exactly 0).
+
     Returns (logits [B, Lc, vocab] float32, cache_k, cache_v). Unlike the
     JAX version the caches are updated in place (and returned for symmetry)."""
     dec = params["decoder"]
     cdt = compute_dtype(cfg)
     heads, kv_heads = cfg.num_heads, cfg.kv_heads
     lc = input_ids.shape[1]
-    max_len = cache_k.shape[2]
     device = input_ids.device
+    qi = torch.arange(lc, device=device)[None, None, :, None]
 
     # The JAX source adds the two embeddings in the parameters' dtype and
     # widens the sum; under jit XLA drops that bf16 round trip (excess
     # precision), so the compiled program adds in float32, as here.
-    x = (dec["tok_emb"][input_ids].float()
-         + dec["pos_emb"][pos0:pos0 + lc][None].float())
-    key_pos = torch.arange(max_len, device=device)[None, None, None, :]
-    qi = torch.arange(lc, device=device)[None, None, :, None]
-    self_mask = key_pos <= pos0 + qi                           # [1, 1, Lc, K]
+    if truepos is None:
+        pos_emb = dec["pos_emb"][pos0:pos0 + lc][None]
+        keys = cache_k.shape[2]
+        key_pos = torch.arange(keys, device=device)[None, None, None, :]
+        self_mask = key_pos <= pos0 + qi                       # [1, 1, Lc, K]
+    else:
+        pos = truepos[:, None] + torch.arange(lc, device=device)[None]
+        pos_emb = dec["pos_emb"][pos.clamp(0, dec["pos_emb"].shape[0] - 1)]
+        keys = pos0 + lc
+        key_pos = torch.arange(keys, device=device)[None, None, None, :]
+        in_chunk = (key_pos >= pos0) & (key_pos <= pos0 + qi)  # [1, 1, Lc, K]
+        hist = slot_valid[:, None, None, :keys] & (key_pos < pos0)
+        self_mask = hist | in_chunk                            # [B, 1, Lc, K]
+    x = dec["tok_emb"][input_ids].float() + pos_emb.float()
 
     for i in range(cfg.decoder_layers):
         lp = _layer(dec["layers"], i)
@@ -486,7 +508,8 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads).to(cdt)
         cache_k[i, :, pos0:pos0 + lc] = k
         cache_v[i, :, pos0:pos0 + lc] = v
-        a = _attention(q, cache_k[i], cache_v[i], cdt, mask=self_mask)
+        a = _attention(q, cache_k[i, :, :keys], cache_v[i, :, :keys], cdt,
+                       mask=self_mask)
         x = x + _dot(a, lp["o_w"], cdt) + lp["o_b"]
 
         h = _layer_norm(x, lp["lnx_g"], lp["lnx_b"])

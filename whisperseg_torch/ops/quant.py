@@ -1,9 +1,11 @@
 """Int8 and packed-int4 weight quantization for inference (kernels
-``csrc/qdot.cu``).
+``csrc/qdot.cu``) and for quantization-aware training.
 
-The port of the inference half of ``whisperseg_tpu/ops/quant.py``:
-``QuantTensor`` / ``Quant4Tensor``, ``quantize`` / ``quantize4`` / ``unpack4``,
-``quantize_params`` and the products ``qdot`` / ``qdot4``. The quantization
+The port of ``whisperseg_tpu/ops/quant.py``: ``QuantTensor`` /
+``Quant4Tensor``, ``quantize`` / ``quantize4`` / ``unpack4``,
+``quantize_params``, the products ``qdot`` / ``qdot4``, and the
+quantization-aware training of ``ste_quant8`` / ``ste_quant4`` /
+``fake_quantize_params``. The quantization
 grids are the JAX package's bit for bit (float32 division, round half to
 even), so a tree quantized by either package gives the same model.
 
@@ -184,6 +186,54 @@ def quantize_params(params: dict, bits: int = 8) -> dict:
     fn = quantize if bits == 8 else quantize4
     return _map_leaves(
         params, lambda k, v: fn(v) if k in QUANT_LEAF_NAMES else v)
+
+
+# ----------------------------------------------- quantization-aware training
+#
+# Fake quantization with a straight-through estimator: the forward sees the
+# dequantized grid the quantized inference path uses (the same ``quantize`` /
+# ``quantize4``), the backward passes the gradient through unchanged. The
+# master weights stay float32 for the optimizer.
+
+
+class _SteQuant8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        qt = quantize(w)
+        return qt.values.float() * qt.scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _SteQuant4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        return unpack4(quantize4(w), torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def ste_quant8(w: torch.Tensor) -> torch.Tensor:
+    """float32 ``w`` on its per-channel int8 grid; identity gradient."""
+    return _SteQuant8.apply(w)
+
+
+def ste_quant4(w: torch.Tensor) -> torch.Tensor:
+    """float32 ``w`` on its group-wise int4 grid; identity gradient."""
+    return _SteQuant4.apply(w)
+
+
+def fake_quantize_params(params: dict, bits: int) -> dict:
+    """The tree with every leaf that :func:`quantize_params` quantizes put
+    on its ``bits`` grid by the straight-through estimator; the other
+    leaves are the same tensors."""
+    ste = {8: ste_quant8, 4: ste_quant4}[bits]
+    return _map_leaves(
+        params, lambda k, v: ste(v) if k in QUANT_LEAF_NAMES else v)
 
 
 def cast_float_leaves(params: dict, dtype: torch.dtype) -> dict:

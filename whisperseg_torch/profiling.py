@@ -1,15 +1,49 @@
-"""Step timing (the ``StepTimer`` of ``whisperseg_tpu/profiling.py``).
+"""Profiling and step timing (the port of ``whisperseg_tpu/profiling.py``).
 
-Host wall clock between ticks, over a rolling window. The training loop does
-not synchronize the device each step, so on the card a tick measures the
-host's dispatch until the device's queue fills, and the device's rate after.
+:func:`trace` records a ``torch.profiler`` trace (host and, on the card,
+CUDA activity) and writes it into a directory as a Chrome trace.
+:class:`StepTimer` keeps the host wall clock between ticks over a rolling
+window. The training loop does not synchronize the device each step, so on
+the card a tick measures the host's dispatch until the device's queue
+fills, and the device's rate after.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import deque
 from typing import Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """``torch.profiler`` over the block, written as
+    ``log_dir/trace-<pid>-<time>.json`` (Chrome trace format) when it ends;
+    nothing without a directory. CUDA activity is recorded when CUDA is
+    available."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace-{os.getpid()}-{int(time.time())}.json"))
 
 
 class StepTimer:

@@ -22,8 +22,9 @@ mode (features, encoder and frame head, then ``refine.segments_from_tracks``);
 ``segment_streaming()``, which reads a WAV file in chunks at bounded memory
 (audio/stream.py) and gives ``segment()``'s table; and ``warmup()``, which
 builds the kernels and runs one batch of each path before a service takes
-requests. Speculative decoding and HF-format checkpoints raise
-``NotImplementedError`` naming their ROADMAP item.
+requests. ``set_draft_model()`` turns on greedy speculative decoding
+(decode.generate_speculative) for the requests it applies to. HF-format
+checkpoints raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from .consolidation import (consolidate_by_clustering, consolidate_by_voting,
                             merge_window_boundaries)
 from .constants import RATIO_DECODING_TIME_STEP_TO_SPEC_TIME_STEP as RATIO
 from .constants import fft_time_delta
-from .decode import generate, gumbel_noise, samples
+from .decode import generate, generate_speculative, gumbel_noise, samples
 from .hub import download_model
 from .models.config import WhisperConfig
 from .models.whisper import encoder_forward, frame_head_forward
@@ -141,6 +142,15 @@ def _pad_rows(chunk: np.ndarray, rows: int) -> np.ndarray:
                          chunk.dtype)])
 
 
+def _bf16_draft(params: dict, device) -> dict:
+    """A draft model's tree on ``device`` with its float32 leaves in
+    bfloat16, as the JAX package casts a draft."""
+    return {k: _bf16_draft(v, device) if isinstance(v, dict) else v.to(
+        device=device,
+        dtype=torch.bfloat16 if v.dtype == torch.float32 else None)
+        for k, v in params.items()}
+
+
 class Segmenter:
     """Segmentation front door over a (params, config) pair. Every parameter
     is cast to ``inference_dtype`` (bfloat16 by default) and moved to
@@ -196,9 +206,35 @@ class Segmenter:
                    device=device)
 
     def set_draft_model(self, model_path: str, spec_k: int = 4):
-        raise NotImplementedError(
-            "speculative decoding is not ported yet: ROADMAP.md Queue A item "
-            "10 (speculative decoding)")
+        """Turn on greedy speculative decoding: a small draft checkpoint of
+        the same vocabulary (e.g. a tiny fine-tune of the same data)
+        proposes ``spec_k`` tokens a step and this model verifies them in
+        one forward. The output is this model's greedy transcript; the speed
+        follows the draft's agreement with it. Applies to greedy requests
+        only (``num_beams <= 1``, no sampling, unconstrained, no
+        ``int8_kv``). The draft's float32 leaves are cast to bfloat16."""
+        if not os.environ.get("WS_SPEC_NO_WARN"):
+            print("Warning: speculative decoding is not faster than plain "
+                  "greedy decoding wherever a draft step costs about as much "
+                  "as a target step, as it does when the device waits on the "
+                  "host between steps: on an NVIDIA H100 80GB HBM3 (700 W), "
+                  "the shipped tiny checkpoint drafting for the base one ran "
+                  "at 0.36-0.51x of greedy's speed (chip_smoke.py's "
+                  "speculative phase). Measure it on your hardware before "
+                  "enabling it in production; set WS_SPEC_NO_WARN=1 to "
+                  "silence this warning.", file=sys.stderr)
+        dparams, dcfg = load_checkpoint(model_path)
+        self.draft = (_bf16_draft(dparams, self.device), dcfg)
+        self.spec_k = spec_k
+        # verify forwards and committed tokens of every speculative batch
+        self.spec_stats: dict = {}
+
+    def _use_spec(self, num_beams: int, top_k: int, top_p: float,
+                  constrained: bool, int8_kv: bool) -> bool:
+        """Whether a request with these options decodes speculatively."""
+        return (getattr(self, "draft", None) is not None and num_beams <= 1
+                and top_k <= 1 and top_p >= 1.0 and not constrained
+                and not int8_kv)
 
     @property
     def inverse_cluster_codebook(self) -> Dict[int, str]:
@@ -276,12 +312,21 @@ class Segmenter:
         ``collect_frames=True`` also the frame head's (probs, cluster) from
         the same encoder pass."""
         cfg = self.config
-        enc = self._encode(chunk, frontend)
-        tokens = generate(self.params, cfg, max_length=max_length,
-                          num_beams=num_beams, top_k=top_k, top_p=top_p,
-                          length_penalty=length_penalty,
-                          constrained=constrained, int8_kv=int8_kv,
-                          enc_out=enc, noise=noise)
+        x = torch.from_numpy(chunk).to(self.device)
+        feats = frontend.features_for_clips(x, self.total_spec_columns)
+        enc = encoder_forward(self.params, cfg, feats)
+        if self._use_spec(num_beams, top_k, top_p, constrained, int8_kv):
+            dparams, dcfg = self.draft
+            tokens = generate_speculative(
+                self.params, cfg, dparams, dcfg, feats, max_length=max_length,
+                spec_k=self.spec_k, enc_out=enc,
+                stats=self.spec_stats)
+        else:
+            tokens = generate(self.params, cfg, max_length=max_length,
+                              num_beams=num_beams, top_k=top_k, top_p=top_p,
+                              length_penalty=length_penalty,
+                              constrained=constrained, int8_kv=int8_kv,
+                              enc_out=enc, noise=noise)
         if collect_frames:
             return (tokens, *_frame_outputs(self.params, cfg, enc))
         return tokens
@@ -622,9 +667,13 @@ class Segmenter:
             total_samples = 0
             flush_idx = 0
             # the fitted frame post-processing takes its tracks from the
-            # decode pass's own encoder run over the trial-0 windows
+            # decode pass's own encoder run over the trial-0 windows; a
+            # speculative decode reads them in a second pass over the file,
+            # as the JAX package does
             need_frames = bool((frame_split or frame_refine_ms or frame_filter)
                                and "frame_head" in self.params)
+            fuse_frames = need_frames and not self._use_spec(
+                num_beams, top_k, top_p, constrained, int8_kv)
             probs0_parts: List[np.ndarray] = []
             cl0_parts: List[np.ndarray] = []
 
@@ -635,11 +684,11 @@ class Segmenter:
                     del pend_clips[:batch_size]
                     gen = self._generate_tokens(
                         np.stack(take), frontend, batch_size, max_length,
-                        num_beams, length_penalty, collect_frames=need_frames,
+                        num_beams, length_penalty, collect_frames=fuse_frames,
                         int8_kv=int8_kv, top_k=top_k, top_p=top_p,
                         seed=seed + flush_idx, constrained=constrained)
                     take_meta = pend_meta[:len(take)]
-                    if need_frames:
+                    if fuse_frames:
                         tokens, probs, cl = gen
                         # trial-0 rows arrive in time order across flushes
                         rows = [i for i, m in enumerate(take_meta)
@@ -694,9 +743,14 @@ class Segmenter:
             if merge_gap_ms:
                 final = merge_small_gaps(final, gap_s=merge_gap_ms / 1000.0)
             if need_frames:
-                tracks = _tracks_from_window_frames(
-                    np.concatenate(probs0_parts), np.concatenate(cl0_parts),
-                    audio_duration, spec_time_step)
+                if fuse_frames:
+                    tracks = _tracks_from_window_frames(
+                        np.concatenate(probs0_parts),
+                        np.concatenate(cl0_parts), audio_duration,
+                        spec_time_step)
+                else:
+                    tracks, _ = self._stream_frame_tracks(
+                        stream, spec_time_step, min_frequency, batch_size)
                 final = apply_frame_postprocess(
                     final, tracks, time_delta, frame_split=frame_split,
                     frame_refine_ms=frame_refine_ms, frame_filter=frame_filter,
@@ -849,15 +903,20 @@ class Segmenter:
         audio = np.asarray(audio, dtype=np.float32)
         clips, meta = self.slice_audio_windows(audio, sr, spec_time_step,
                                                num_trials)
+        # the frame post-processing takes its tracks from the decode's own
+        # encoder pass over the trial-0 windows; a speculative decode reads
+        # them in a second pass (frame_probs), as the JAX package does
         need_frames = bool((frame_split or frame_refine_ms or frame_filter)
                            and "frame_head" in self.params)
+        fuse_frames = need_frames and not self._use_spec(
+            num_beams, top_k, top_p, constrained, int8_kv)
         frontend = Frontend(sr, spec_time_step, min_frequency)
         gen = self._generate_tokens(clips, frontend, batch_size, max_length,
                                     num_beams, length_penalty, status_monitor,
-                                    collect_frames=need_frames,
+                                    collect_frames=fuse_frames,
                                     int8_kv=int8_kv, top_k=top_k, top_p=top_p,
                                     seed=seed, constrained=constrained)
-        if need_frames:
+        if fuse_frames:
             token_lists, all_probs, all_cl = gen
             n0 = sum(1 for m in meta if m[0] == 0)  # trial-0 window count
             tracks = _tracks_from_window_frames(
@@ -877,6 +936,10 @@ class Segmenter:
             refine_boundaries_ms=refine_boundaries_ms,
             min_len_s=min_segment_length)
         if need_frames:
+            if not fuse_frames:
+                tracks = self.frame_probs(
+                    audio, sr, spec_time_step=spec_time_step,
+                    min_frequency=min_frequency, batch_size=batch_size)
             final = apply_frame_postprocess(
                 final, tracks, time_delta, frame_split=frame_split,
                 frame_refine_ms=frame_refine_ms, frame_filter=frame_filter,

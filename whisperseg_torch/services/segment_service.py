@@ -206,7 +206,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="admit concurrent requests and fuse their "
                              "windows into shared device batches")
     parser.add_argument("--draft_model_path", default=None,
-                        help="speculative decoding: not ported yet")
+                        help="draft checkpoint for greedy speculative decoding "
+                             "(Segmenter.set_draft_model)")
     parser.add_argument("--spec_k", default=4, type=int)
     parser.add_argument("--warmup", type=int, default=1,
                         help="build the kernels and run one batch of each "

@@ -13,19 +13,28 @@ training device; compute runs in ``cfg.compute_dtype``.
 ``torch.optim.AdamW`` with a ``LambdaLR`` equals ``optax.adamw(schedule,
 weight_decay, mask)``: the same moments, bias corrections and eps, decay
 scaled by the learning rate and applied to the weights before the step, and
-the first update taken at ``schedule(0)``. Dropout and SpecAugment draw from
-a ``torch.Generator`` seeded from ``args.seed``; the data pipeline draws from
-the global ``np.random`` stream in the JAX package's order.
+the first update taken at ``schedule(0)``. ``optimizer="adafactor"`` is
+:class:`Adafactor`, the JAX package's optax chain written out. Dropout and
+SpecAugment draw from a ``torch.Generator`` seeded from ``args.seed``; the
+data pipeline draws from the global ``np.random`` stream in the JAX
+package's order.
 
-Options of later slices raise ``NotImplementedError`` naming their ROADMAP
-item: adafactor, QAT, ``device_pool``, GQA uptraining, splice synthesis,
-wandb and profiler hooks, multi-device runs, HF initial models.
+The other options of the JAX package: ``qat_bits`` (straight-through fake
+quantization of the projection weights inside the loss,
+ops/quant.py), ``gqa_kv_heads`` (mean-pool the K/V heads, models/gqa.py,
+then train), ``synth_augment`` (splice-synthesized files, augment.py),
+``device_pool`` (epoch blocks of crops held on the device, trained by
+pretrain.build_scan_train_step) and ``profile_dir`` (a ``torch.profiler``
+trace of steps 10-14). Multi-device runs, wandb and HF initial models raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -41,11 +50,13 @@ from ..data import (FRAME_KEYS, DataLoader, VocalSegDataset,
                     train_val_split)
 from ..evaluate import evaluate
 from ..models.config import WhisperConfig, make_config
+from ..models.gqa import convert_to_gqa
 from ..models.whisper import (cross_entropy_loss, decoder_forward_train,
                               encoder_forward, ensure_frame_head,
                               frame_head_forward, frame_head_loss, init_params,
                               sinusoid_position_table)
-from ..profiling import StepTimer
+from ..ops.quant import fake_quantize_params
+from ..profiling import StepTimer, trace
 from ..runtime import resolve_device
 from ..segmenter import Segmenter
 from ..tokenizer import NUM_TIMESTAMPS, VOCAB_SIZE
@@ -110,16 +121,9 @@ def _not_ported(what: str, item: str):
 
 
 def _check_supported(args: TrainArgs) -> None:
-    training = "11 (training: {})".format
     for on, what, item in (
-            (args.optimizer != "adamw", f"optimizer={args.optimizer!r}",
-             training("adafactor")),
-            (args.qat_bits, "qat_bits", training("QAT")),
-            (args.device_pool, "device_pool", training("device_pool")),
-            (args.gqa_kv_heads, "gqa_kv_heads", training("GQA uptraining")),
-            (args.synth_augment, "synth_augment", training("synth_augment")),
-            (args.use_wandb, "use_wandb", training("wandb and profiler hooks")),
-            (args.profile_dir, "profile_dir", training("wandb and profiler hooks")),
+            (args.use_wandb, "use_wandb", "11 (training: wandb, which is not "
+                                          "queued: the package is absent)"),
             (args.tp > 1, "tp > 1", "13 (multi-GPU)"),
             (args.fsdp, "fsdp", "13 (multi-GPU)"),
             ((args.n_device or 1) > 1, "n_device > 1", "13 (multi-GPU)")):
@@ -175,15 +179,97 @@ def _leaves(tree, prefix=""):
             yield name, v
 
 
+class Adafactor(torch.optim.Optimizer):
+    """The JAX package's adafactor, optax's chain written out, in its order:
+
+      1. ``scale_by_factored_rms(min_dim_size_to_factor=32)``: decay rate
+         ``1 - (t + 1) ** -0.8`` at update count t, epsilon 1e-30 added to
+         the squared gradient; a leaf whose second-largest dim is at least
+         32 keeps factored row and column statistics over its two largest
+         dims (``numpy.argsort`` of the shape picks them), the others a full
+         one; no first moment;
+      2. ``clip_by_block_rms(1.0)``: each leaf's update divided by
+         ``max(1, rms(update))``;
+      3. ``add_decayed_weights`` with the group's ``weight_decay``, before
+         the learning rate, so the decay is ``lr * weight_decay``;
+      4. the learning rate (the group's ``lr``, set by a ``LambdaLR``).
+
+    ``torch.optim.Adafactor`` differs in its decay schedule, clipping and
+    order of decay, so it is not used."""
+
+    DECAY_EXPONENT = 0.8
+    EPSILON = 1e-30
+    CLIP_RMS = 1.0
+    MIN_DIM_SIZE_TO_FACTOR = 32
+
+    def __init__(self, params, lr: float = 1.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @classmethod
+    def factored_dims(cls, shape):
+        """(row dim, column dim) of a factored leaf, or None (optax's
+        ``_factored_dims``): the reduced dims are the two largest."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < cls.MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                dims = self.factored_dims(tuple(p.shape))
+                if not state:
+                    state["step"] = 0
+                    if dims is None:
+                        state["v"] = torch.zeros_like(p)
+                    else:
+                        d1, d0 = dims
+                        state["v_row"] = p.new_zeros(
+                            [n for i, n in enumerate(p.shape) if i != d0])
+                        state["v_col"] = p.new_zeros(
+                            [n for i, n in enumerate(p.shape) if i != d1])
+                t = torch.tensor(state["step"] + 1, dtype=torch.float32)
+                beta = float(1.0 - t ** -self.DECAY_EXPONENT)
+                g2 = g * g + self.EPSILON
+                if dims is None:
+                    v = state["v"].mul_(beta).add_((1.0 - beta) * g2)
+                    u = g * v.rsqrt()
+                else:
+                    d1, d0 = dims
+                    v_row = state["v_row"].mul_(beta).add_(
+                        (1.0 - beta) * g2.mean(dim=d0))
+                    v_col = state["v_col"].mul_(beta).add_(
+                        (1.0 - beta) * g2.mean(dim=d1))
+                    r = d1 - 1 if d1 > d0 else d1
+                    row_factor = (v_row / v_row.mean(dim=r, keepdim=True)).rsqrt()
+                    u = (g * row_factor.unsqueeze(d0)
+                         * v_col.rsqrt().unsqueeze(d1))
+                rms = torch.sqrt(torch.mean(u * u))
+                u = u / torch.clamp(rms / self.CLIP_RMS, min=1.0)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(u, alpha=-group["lr"])
+                state["step"] += 1
+        return None
+
+
 def make_optimizer(params, learning_rate: float, weight_decay: float,
                    warmup_steps: int, total_steps: int, lr_schedule: str,
                    freeze_encoder: bool, optimizer: str = "adamw"):
-    """(AdamW, its LambdaLR, schedule). Two parameter groups, with and
-    without weight decay; under ``freeze_encoder`` the encoder's leaves are
-    left out (the JAX package zeroes their updates), so they never change.
-    The group learning rate is ``schedule(step)`` itself."""
-    if optimizer != "adamw":
-        raise _not_ported(f"optimizer={optimizer!r}", "11 (training: adafactor)")
+    """(optimizer, its LambdaLR, schedule): AdamW or :class:`Adafactor`.
+    Two parameter groups, with and without weight decay; under
+    ``freeze_encoder`` the encoder's leaves are left out (the JAX package
+    zeroes their updates), so they never change. The group learning rate is
+    ``schedule(step)`` itself."""
+    if optimizer not in ("adamw", "adafactor"):
+        raise ValueError(f"unknown optimizer {optimizer!r}")
     if lr_schedule == "linear":
         # HF get_linear_schedule_with_warmup
         def schedule(step: int) -> float:
@@ -200,10 +286,12 @@ def make_optimizer(params, learning_rate: float, weight_decay: float,
         if freeze_encoder and name.split(".")[0] == "encoder":
             continue
         (decay if mask[name] else no_decay).append(leaf)
-    opt = torch.optim.AdamW(
-        [{"params": decay, "weight_decay": weight_decay},
-         {"params": no_decay, "weight_decay": 0.0}],
-        lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    groups = [{"params": decay, "weight_decay": weight_decay},
+              {"params": no_decay, "weight_decay": 0.0}]
+    if optimizer == "adafactor":
+        opt = Adafactor(groups, lr=1.0)
+    else:
+        opt = torch.optim.AdamW(groups, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
     scheduler = torch.optim.lr_scheduler.LambdaLR(opt, schedule)
     return opt, scheduler, schedule
 
@@ -251,14 +339,17 @@ def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0
                      use_spec_augment: bool = False,
                      frame_head_weight: float = 0.0,
                      frame_boundary_weight: float = 1.0):
-    """``step(params, batch, gen) -> loss``: forward, backward, one AdamW
-    update and one schedule step. ``batch`` holds tensors on the params'
-    device (``batch_to_device``); ``gen`` (a CPU ``torch.Generator``) feeds
-    dropout and SpecAugment. The loss comes back as a device scalar, so the
-    host does not wait for the step; this step's gradients stay in each
+    """``step(params, batch, gen) -> loss``: forward, backward, one update
+    of ``optimizer`` and one schedule step. ``batch`` holds tensors on the
+    params' device (``batch_to_device``); ``gen`` (a CPU
+    ``torch.Generator``) feeds dropout and SpecAugment. ``qat_bits`` (8 or
+    4) puts the projection weights on their quantization grid inside the
+    loss (``fake_quantize_params``); the float32 master weights take the
+    straight-through gradient. The loss comes back as a device scalar, so
+    the host does not wait for the step; this step's gradients stay in each
     leaf's ``.grad``."""
-    if qat_bits:
-        raise _not_ported("qat_bits", "11 (training: QAT)")
+    if qat_bits not in (0, 4, 8):
+        raise ValueError(f"qat_bits must be 0, 4 or 8, got {qat_bits}")
     train = cfg.dropout > 0
 
     def step(params, batch, gen: torch.Generator) -> torch.Tensor:
@@ -266,15 +357,16 @@ def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0
         features = batch["input_features"]
         if use_spec_augment:
             features = spec_augment(features, gen)
-        enc = encoder_forward(params, cfg, features, train=train, generator=gen)
-        logits = decoder_forward_train(params, cfg, enc,
+        p = fake_quantize_params(params, qat_bits) if qat_bits else params
+        enc = encoder_forward(p, cfg, features, train=train, generator=gen)
+        logits = decoder_forward_train(p, cfg, enc,
                                        batch["decoder_input_ids"], train=train,
                                        generator=gen)
         loss = cross_entropy_loss(logits, batch["labels"],
                                   timestamp_weight=timestamp_loss_weight,
                                   timestamp_sigma=timestamp_label_sigma)
         if frame_head_weight > 0 and "frame_targets" in batch:
-            floss = frame_head_loss(frame_head_forward(params, cfg, enc),
+            floss = frame_head_loss(frame_head_forward(p, cfg, enc),
                                     batch["frame_targets"],
                                     boundary_weight=frame_boundary_weight)
             loss = loss + frame_head_weight * floss
@@ -297,6 +389,136 @@ def training_params(params, device, freeze_encoder: bool = False) -> dict:
                 for k, v in tree.items()}
 
     return walk(params, False)
+
+
+def _run_device_pool_loop(args: TrainArgs, cfg, optimizer, scheduler,
+                          schedule, params, dataset, segmenter, audio_list_val,
+                          label_list_val, log_metrics) -> Optional[str]:
+    """Epoch-block training over a pool held on the device (``device_pool``).
+
+    Each block takes one fresh random crop of every dataset item (the
+    augmentation of the per-step loader), collates the crops on the device
+    grouped by frontend configuration (one mel-kernel launch a group), and
+    runs ``len(dataset) // batch_size`` optimizer steps over a shuffled
+    pass of the pool through ``pretrain.build_scan_train_step``: batches are
+    gathered on the device and the losses read once a block. The next
+    block's crops are made on a worker thread meanwhile; their generators
+    are drawn on this thread first, so a seed gives the same crops. The
+    last block stops at ``max_num_iterations``; validation and saving
+    happen at the first block boundary past each multiple of
+    ``validate_every`` / ``save_every``. The pool holds about N * 80 *
+    total_spec_columns * 4 bytes of features."""
+    from ..pretrain import build_scan_train_step, stack_batches
+
+    device = dataset.device
+    n, b = len(dataset), args.batch_size
+    steps_per_block = max(n // b, 1)
+    by_key: Dict = {}
+    for i, label in enumerate(dataset.label_list):
+        key = (label["sr"], label["spec_time_step"],
+               label.get("min_frequency", 0))
+        by_key.setdefault(key, []).append(i)
+    groups_idx = list(by_key.values())
+
+    def draw_rngs():
+        return [np.random.RandomState(np.random.randint(2 ** 31))
+                for _ in range(n)]
+
+    def make_items(rngs):
+        return [[dataset.__getitem__(i, rng=rngs[i]) for i in idxs]
+                for idxs in groups_idx]
+
+    train_k = build_scan_train_step(
+        cfg, optimizer, scheduler, steps_per_block, b, qat_bits=args.qat_bits,
+        timestamp_loss_weight=args.timestamp_loss_weight,
+        timestamp_label_sigma=args.timestamp_label_sigma,
+        use_spec_augment=args.spec_augment,
+        frame_head_weight=args.frame_head_weight if args.frame_head else 0.0,
+        frame_boundary_weight=args.frame_boundary_weight)
+
+    pending: dict = {}
+
+    def gen_worker(rngs):
+        pending["items"] = make_items(rngs)
+
+    groups = make_items(draw_rngs())
+    gen = torch.Generator().manual_seed(args.seed)
+    step = epoch = 0
+    val_score_history: List = []
+    best_step: Optional[int] = None
+    early_stop = False
+    start_time = timer_t0 = time.time()
+    segmenter.params = params
+
+    while step < args.max_num_iterations and not early_stop:
+        pool = stack_batches([dataset.collate(items) for items in groups])
+        t_gen = threading.Thread(target=gen_worker, args=(draw_rngs(),))
+        t_gen.start()
+        try:
+            # pool rows are in group order; a shuffled full pass over it
+            perm = np.random.permutation(max(n, steps_per_block * b))[
+                : steps_per_block * b] % n
+            k = min(steps_per_block, args.max_num_iterations - step)
+            idx = torch.from_numpy(perm.reshape(steps_per_block, b)[:k]).to(
+                device)
+            losses = train_k(params, pool, idx, gen)
+            prev = step
+            step += k
+            epoch += 1
+            mean_loss = float(losses.mean())  # the block's one host sync
+            lr_now = float(schedule(step))
+            rate = step / max(time.time() - timer_t0, 1e-9)
+            print(f"Epoch: {epoch}, current_step: {step}, "
+                  f"learning rate: {lr_now:.8f}, Loss: {mean_loss:.4f}")
+            log_metrics({"current_step": step, "epoch": epoch,
+                         "train/loss": mean_loss, "train/learning_rate": lr_now,
+                         "perf/steps_per_s": round(rate, 2)})
+            frac = step / args.max_num_iterations
+            _write_status(args.model_folder, int(np.round(frac * 100)),
+                          int((time.time() - start_time) / frac * (1 - frac)))
+
+            def crossed(every):
+                return every is not None and step // every > prev // every
+
+            if ((crossed(args.validate_every) or args.validate_per_epoch)
+                    and len(audio_list_val) > 0):
+                eval_res = evaluate(audio_list_val, label_list_val, segmenter,
+                                    args.batch_size, args.max_length,
+                                    num_trials=1, num_beams=1, verbose=False)
+                seg_f1 = eval_res["segment_wise"][-1]
+                frame_f1 = eval_res["frame_wise"][-1]
+                score = (seg_f1 + frame_f1) * 0.5
+                print(f"Epoch: {epoch}, current_step: {step}, "
+                      f"validation segment F1: {seg_f1:.4f}, "
+                      f"frame F1: {frame_f1:.4f}")
+                log_metrics({"current_step": step, "validate/score": score,
+                             "validate/segment_score": seg_f1,
+                             "validate/frame_score": frame_f1})
+                is_new_best = (not val_score_history
+                               or score > max(x for _, x in val_score_history))
+                val_score_history.append((step, score))
+                if is_new_best:
+                    best_step = step
+                    save_training_checkpoint(args.model_folder, params, cfg,
+                                             step, args.max_to_keep,
+                                             keep_step=best_step)
+            if crossed(args.save_every) or args.save_per_epoch:
+                save_training_checkpoint(args.model_folder, params, cfg, step,
+                                         args.max_to_keep, keep_step=best_step)
+            if (step >= 0.5 * args.max_num_iterations
+                    and len(val_score_history) >= 3
+                    and val_score_history[-1][1] < val_score_history[-2][1]
+                    < val_score_history[-3][1]):
+                early_stop = True
+        finally:
+            t_gen.join()
+        groups = pending["items"]
+
+    if not os.path.exists(os.path.join(args.model_folder,
+                                       f"checkpoint-{step}")):
+        save_training_checkpoint(args.model_folder, params, cfg, step,
+                                 args.max_to_keep, keep_step=best_step)
+    return _finish(args.model_folder, val_score_history, best_step)
 
 
 def _write_status(model_folder: str, progress: int, eta_s: int) -> None:
@@ -325,6 +547,11 @@ def run_training(args: TrainArgs) -> Optional[str]:
     params, cfg = load_model_any(args.initial_model_path,
                                  args.total_spec_columns, args.dropout)
     cfg.remat = args.remat
+    if args.gqa_kv_heads and cfg.kv_heads != args.gqa_kv_heads:
+        # GQA uptraining: mean-pool the K/V heads of each group, then train
+        params, cfg = convert_to_gqa(params, cfg, args.gqa_kv_heads)
+        cfg.remat = args.remat
+        print(f"Converted initial model to GQA (kv_heads={args.gqa_kv_heads}).")
     if args.max_length > cfg.max_target_positions:
         print(f"Warning: max_length {args.max_length} exceeds the model's "
               f"max_target_positions {cfg.max_target_positions}; clamping.")
@@ -375,6 +602,19 @@ def run_training(args: TrainArgs) -> Optional[str]:
                   f"pick a worse model than the last step. Consider a larger "
                   f"--val_ratio, more data, or val_ratio=0 with a fixed "
                   f"iteration budget.")
+    if args.synth_augment > 0:
+        # splice-synthesized files from the training split's own syllables
+        # and noise, after the validation split so validation stays real
+        from ..augment import synthesize_training_files
+
+        synth_audio, synth_label = synthesize_training_files(
+            audio_list, label_list, args.synth_augment,
+            total_spec_columns=args.total_spec_columns)
+        n_synth_segments = int(sum(len(l["onset"]) for l in synth_label))
+        print(f"Synth augmentation: +{len(synth_audio)} file(s), "
+              f"{n_synth_segments} spliced segment(s).")
+        audio_list = list(audio_list) + synth_audio
+        label_list = list(label_list) + synth_label
     audio_list, label_list = slice_audios_and_labels(audio_list, label_list,
                                                      args.total_spec_columns)
 
@@ -410,7 +650,7 @@ def run_training(args: TrainArgs) -> Optional[str]:
         args.max_num_iterations, args.lr_schedule, args.freeze_encoder,
         optimizer=args.optimizer)
     train_step = build_train_step(
-        cfg, optimizer, scheduler,
+        cfg, optimizer, scheduler, qat_bits=args.qat_bits,
         timestamp_loss_weight=args.timestamp_loss_weight,
         timestamp_label_sigma=args.timestamp_label_sigma,
         use_spec_augment=args.spec_augment,
@@ -423,7 +663,35 @@ def run_training(args: TrainArgs) -> Optional[str]:
         with open(metrics_path, "a") as f:
             f.write(json.dumps(d) + "\n")
 
+    if args.device_pool:
+        final = _run_device_pool_loop(args, cfg, optimizer, scheduler,
+                                      schedule, params, dataset, segmenter,
+                                      audio_list_val, label_list_val,
+                                      log_metrics)
+        if final:
+            print(f"Final checkpoint: {final}")
+        print("All Done!")
+        return final
+
     # ----------------------------------------------------------------- the loop
+    # profile_dir: a torch.profiler trace of steps 10-14, closed at the
+    # latest when the loop ends
+    profiling = contextlib.ExitStack()
+    with profiling:
+        final = _train_loop(args, cfg, params, loader, train_step, schedule,
+                            segmenter, audio_list_val, label_list_val,
+                            log_metrics, device, profiling)
+    if final:
+        print(f"Final checkpoint: {final}")
+    print("All Done!")
+    return final
+
+
+def _train_loop(args: TrainArgs, cfg, params, loader, train_step, schedule,
+                segmenter, audio_list_val, label_list_val, log_metrics, device,
+                profiling: contextlib.ExitStack) -> Optional[str]:
+    """The per-step loop of :func:`run_training`; returns the final
+    checkpoint's path."""
     gen = torch.Generator().manual_seed(args.seed)
     current_step = 0
     loss_window: List[torch.Tensor] = []
@@ -437,9 +705,13 @@ def run_training(args: TrainArgs) -> Optional[str]:
 
     for epoch in range(args.max_num_epochs + 1):
         for count, batch in enumerate(loader):
+            if args.profile_dir and current_step == 10:
+                profiling.enter_context(trace(args.profile_dir))
             # the loss stays on the device until print_every: no per-step sync
             loss_window.append(train_step(params, batch_to_device(batch, device),
                                           gen))
+            if args.profile_dir and current_step == 14:
+                profiling.close()
             timer.tick()
             current_step += 1
 
@@ -510,15 +782,19 @@ def run_training(args: TrainArgs) -> Optional[str]:
         if current_step >= args.max_num_iterations or early_stop:
             break
 
-    _write_status(args.model_folder, 100, 0)
+    return _finish(args.model_folder, val_score_history, best_step)
+
+
+def _finish(model_folder: str, val_score_history: List,
+            best_step: Optional[int]) -> Optional[str]:
+    """Status 100 %, then ``final_checkpoint`` from the best validation
+    step (else the last saved one); the status file is removed."""
+    _write_status(model_folder, 100, 0)
     if val_score_history:
         best_step = sorted(val_score_history, key=lambda x: -x[1])[0][0]
-    final = finalize_best_checkpoint(args.model_folder, best_step)
+    final = finalize_best_checkpoint(model_folder, best_step)
     try:
-        os.remove(os.path.join(args.model_folder, "status.json"))
+        os.remove(os.path.join(model_folder, "status.json"))
     except OSError:
         pass
-    if final:
-        print(f"Final checkpoint: {final}")
-    print("All Done!")
     return final
