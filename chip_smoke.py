@@ -104,7 +104,16 @@ then runs, in order:
  12. pretrain: ``pretrain.run_pretraining`` of the base size over a pool
      of every preset configuration and a 384 kHz one: the mel kernel at
      n_fft 512 to 8192, the attention kernels once a layer a step, finite
-     losses, and the checkpoint answers a request.
+     losses, and the checkpoint answers a request;
+ 13. hf: the base checkpoint exported to a HuggingFace directory and
+     imported back bit for bit, ``Segmenter.from_pretrained`` on it giving
+     the ``params.npz`` checkpoint's table (K1 and K2 counted), and
+     transformers' float32 logits on the card beside the port's;
+ 14. parallel: two ranks on ``cuda:0`` over gloo train the base checkpoint
+     in dp 2, tp 2 and dp 2 + fsdp, in bf16 and in float32, each beside one
+     process (PARALLEL_RUNS: losses, the first gradient's norm, the
+     parameters' change), the attention kernels once a layer a step on
+     each rank (K2 at 4 heads under tp); then a mesh Segmenter's table.
 
 The last three lines of its output are the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. A failed phase
@@ -351,6 +360,12 @@ ATTENTION_CASES = [  # name, B, H, Hkv, hd, dtype, valid keys; Sp 512
     ("B 1 bf16", 1, 8, 8, HD, torch.bfloat16, VALID),
     # a short clip: key tiles 5-7 wholly masked, tile 4 cut at an odd key
     ("301 valid bf16", 2, 8, 2, 128, torch.bfloat16, 301),
+    # (parallel) a rank's share of the base checkpoint at global batch 4:
+    # dp 2 (and fsdp) halves the rows, tp 2 the heads
+    ("base dp 2 bf16", BATCH // 2, 8, 8, HD, torch.bfloat16, VALID),
+    ("base tp 2 bf16", BATCH, 4, 4, HD, torch.bfloat16, VALID),
+    ("base dp 2 f32", BATCH // 2, 8, 8, HD, torch.float32, VALID),
+    ("base tp 2 f32", BATCH, 4, 4, HD, torch.float32, VALID),
 ]
 
 
@@ -513,6 +528,11 @@ ATTENTION_BWD_CASES = [  # name, B, H, Hkv, hd, dtype, valid keys; Sp 512
     ("B 1 bf16", 1, 8, 8, HD, torch.bfloat16, VALID),
     # a short clip: key tiles 5-7 wholly masked, tile 4 cut at an odd key
     ("301 valid bf16", 2, 8, 2, 128, torch.bfloat16, 301),
+    # (parallel) a rank's share at global batch 4: dp 2, tp 2
+    ("base dp 2 bf16", BATCH // 2, 8, 8, HD, torch.bfloat16, VALID),
+    ("base tp 2 bf16", BATCH, 4, 4, HD, torch.bfloat16, VALID),
+    ("base dp 2 f32", BATCH // 2, 8, 8, HD, torch.float32, VALID),
+    ("base tp 2 f32", BATCH, 4, 4, HD, torch.float32, VALID),
 ]
 
 
@@ -1749,17 +1769,25 @@ TRAIN_GROUPS = {"K2 attention_hm": ("attention_hm",),
 
 class StepProbe:
     """Stands in for ``trainer.build_train_step`` while a run builds its
-    step: every step is synchronized and timed, its loss read, its launches
-    of the encoder-attention kernels counted, and steps ``profiled`` run
-    under torch.profiler. ``VocalSegDataset.collate`` calls are counted
-    too: each collated batch must launch the mel kernel once."""
+    step: every step is synchronized and timed, its loss read (under a
+    process group, the ranks' shares summed), its launches of the
+    encoder-attention kernels counted, and steps ``profiled`` run under
+    torch.profiler. The first step's gradient norm over the whole model is
+    kept (``grad_norm``, and each leaf's in ``grad_leaves``), and with
+    ``keep_init`` the parameters it started from (``init``, whole, on the
+    host). ``scale`` multiplies every batch's input features (a control:
+    1 + 1e-6 perturbs each step's arithmetic and nothing else).
+    ``VocalSegDataset.collate`` calls are counted too: each collated batch
+    must launch the mel kernel once."""
 
-    def __init__(self, profiled=None):
+    def __init__(self, profiled=None, keep_init=False, scale=1.0):
         from whisperseg_torch.data import VocalSegDataset
         from whisperseg_torch.training import trainer
 
         self.trainer, self.dataset_cls = trainer, VocalSegDataset
-        self.profiled = profiled
+        self.profiled, self.keep_init = profiled, keep_init
+        self.scale = scale
+        self.grad_norm, self.grad_leaves, self.init = None, None, None
         self.times, self.losses, self.launches = [], [], []
         self.collates = 0
         self.prof, self.prof_wall = None, 0.0
@@ -1777,9 +1805,16 @@ class StepProbe:
         def build(*args, **kwargs):
             step = probe.build(*args, **kwargs)
             probe.optimizer = args[1]
+            parallel = kwargs.get("parallel")
 
             def timed_step(params, batch, gen):
                 i = len(probe.times)
+                if probe.scale != 1.0:
+                    batch = dict(batch, input_features=batch["input_features"]
+                                 * probe.scale)
+                if i == 0 and probe.keep_init:
+                    probe.init = {k: v.detach().cpu().clone()
+                                  for k, v in probe.trainer._leaves(params)}
                 if probe.profiled and i == probe.profiled[0]:
                     from torch.profiler import ProfilerActivity, profile
                     probe.prof = profile(activities=[ProfilerActivity.CPU,
@@ -1799,7 +1834,12 @@ class StepProbe:
                     if i == probe.profiled[1] - 1:
                         probe.prof.stop()
                 probe.times.append(dt)
-                probe.losses.append(float(loss))
+                whole = loss if parallel is None else parallel.sum_data(loss)
+                probe.losses.append(float(whole))
+                if i == 0:
+                    probe.grad_leaves = grad_norms(params, parallel)
+                    probe.grad_norm = float(np.sqrt(sum(
+                        x * x for x in probe.grad_leaves.values())))
                 probe.launches.append(tuple(a - b for a, b in zip(after, before)))
                 return loss
             return timed_step
@@ -1813,6 +1853,28 @@ class StepProbe:
     def __exit__(self, *exc):
         self.trainer.build_train_step = self.build
         self.dataset_cls.collate = self.collate
+
+
+def grad_norms(params, parallel=None) -> dict:
+    """Each leaf's gradient norm over the whole model (``.grad``, float64
+    sums): under ``parallel`` (trainer._Parallel) the parts of a leaf cut
+    across ranks are summed over the ranks (a collective)."""
+    import torch.distributed as dist
+
+    from whisperseg_torch.training.trainer import _leaves
+
+    cut = parallel.shards(params) if parallel is not None else {}
+    names, sq = [], []
+    for name, leaf in _leaves(params):
+        names.append(name)
+        own = leaf.grad is not None and (parallel is None or leaf in cut
+                                         or parallel.groups.rank == 0)
+        sq.append(leaf.grad.double().square().sum().cpu() if own
+                  else torch.zeros((), dtype=torch.float64))
+    total = torch.stack(sq)
+    if parallel is not None:
+        dist.all_reduce(total)
+    return dict(zip(names, total.sqrt().tolist()))
 
 
 def train_argv(data: str, model_folder: str, steps: int, extra=()) -> list:
@@ -2435,6 +2497,428 @@ def pretrain_phase(device) -> None:
     print(f"  pretrain phase {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------- hf
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, name)
+        else:
+            yield name, v
+
+
+def _counted_batches(seg):
+    """Counts the device batches ``seg`` runs (``calls[0]``)."""
+    calls = [0]
+    inner = seg._decode_batch
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+    seg._decode_batch = counted
+    return calls
+
+
+def hf_phase(device, npz_seg=None) -> None:
+    """The base checkpoint exported to a HuggingFace directory
+    (models/export_hf.py): imported back (models/convert_hf.py, through
+    ``transformers.WhisperConfig``) it must be the same parameters, bit for
+    bit, and the same config but for the training options, which an HF
+    config does not carry; ``Segmenter.from_pretrained`` of the directory
+    on the card must give the params.npz checkpoint's table on the same
+    request, launching K1 once a batch and K2 once an encoder layer a
+    batch; and transformers' own model, loaded from the directory onto the
+    card in float32, must give the port's float32 logits within 1e-3.
+    ``npz_seg``: a bf16 Segmenter of the params.npz checkpoint already
+    loaded (the serve phase's), else one is made."""
+    import tempfile
+
+    import transformers
+
+    from whisperseg_torch.checkpoint import cast_params, load_checkpoint
+    from whisperseg_torch.models import whisper
+    from whisperseg_torch.models.convert_hf import import_hf_checkpoint
+    from whisperseg_torch.models.export_hf import export_hf_checkpoint
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts
+
+    start = time.perf_counter()
+    print(f"  transformers {transformers.__version__} reads the exported "
+          f"config (safetensors for the weights)", flush=True)
+    params, cfg = load_checkpoint(BASE_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = export_hf_checkpoint(params, cfg, os.path.join(tmp, "hf"))
+        t1 = time.perf_counter()
+        back, bcfg = import_hf_checkpoint(out, total_spec_columns=None)
+        t2 = time.perf_counter()
+        flat = dict(_flat_leaves(params))
+        differ = [k for k, v in _flat_leaves(back)
+                  if k not in flat or not torch.equal(v, flat[k])]
+        # an HF config carries no training options (dropout, remat)
+        cfg_differ = {k: (v, bcfg.to_dict().get(k))
+                      for k, v in cfg.to_dict().items()
+                      if bcfg.to_dict().get(k) != v
+                      and k not in ("dropout", "remat")}
+        print(f"  export {t1 - t0:.2f} s ({sorted(os.listdir(out))}), import "
+              f"{t2 - t1:.2f} s: {len(flat)} leaves, differing leaves "
+              f"{differ}, differing config fields {cfg_differ}", flush=True)
+        if differ or cfg_differ or len(list(_flat_leaves(back))) != len(flat):
+            raise AssertionError("the HF round trip changed the checkpoint")
+
+        hf_seg = Segmenter.from_pretrained(out, device=device)
+        if npz_seg is None:
+            npz_seg = Segmenter.from_pretrained(BASE_MODEL, device=device)
+        audio = tone_bursts(106, duration=10.0)
+        want = npz_seg.segment(audio, SR, num_trials=3)
+        calls = _counted_batches(hf_seg)
+        logmel.launches = attention.launches = 0
+        table, dt = timed(lambda: hf_seg.segment(audio, SR, num_trials=3))
+        k1, k2 = logmel.launches, attention.launches
+        layers = hf_seg.config.encoder_layers
+        print(f"  from_pretrained(HF directory), bfloat16: 10 s, 3 trials -> "
+              f"{len(table['onset'])} segments in {dt:.3f} s, "
+              f"{'the same table as' if table == want else 'NOT the table of'}"
+              f" the params.npz checkpoint; {calls[0]} batches, launches K1 "
+              f"{k1}, K2 {k2}", flush=True)
+        if table != want or not table["onset"] or k1 != calls[0] \
+                or k2 != layers * calls[0]:
+            raise AssertionError(f"HF segmenter: table {table} vs {want}, "
+                                 f"K1 {k1}, K2 {k2}, batches {calls[0]}")
+
+        hf = transformers.WhisperForConditionalGeneration.from_pretrained(
+            out).to(device).eval()
+        gen = torch.Generator().manual_seed(0)
+        feats = torch.randn(2, 80, cfg.total_spec_columns, generator=gen)
+        ids = torch.randint(0, 1024, (2, 24), generator=gen)
+        ids[:, :3] = torch.tensor([12, 13, 14])  # the decoder prompt
+        cfg32 = type(cfg).from_dict(dict(cfg.to_dict(),
+                                         compute_dtype="float32"))
+        with torch.no_grad():
+            p32 = cast_params(params, torch.float32, device)
+            enc = whisper.encoder_forward(p32, cfg32, feats.to(device))
+            ours = whisper.decoder_forward_train(p32, cfg32, enc,
+                                                 ids.to(device))
+            theirs = hf(input_features=feats.to(device),
+                        decoder_input_ids=ids.to(device)).logits
+        gap = (ours - theirs).abs().max().item()
+        print(f"  transformers' WhisperForConditionalGeneration on the card, "
+              f"float32: logits within {gap:.2e} of the port's (tol 1e-3)",
+              flush=True)
+        if not gap <= 1e-3:
+            raise AssertionError(f"transformers' logits differ by {gap}")
+        del hf, hf_seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  hf phase {time.perf_counter() - start:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------- parallel
+
+PARALLEL_STEPS = 5
+PARALLEL_LAYOUTS = [("dp 2", 1, False), ("tp 2", 2, False),
+                    ("dp 2 + fsdp", 1, True)]
+# (compute dtype, learning rate). float32 at lr 1e-4 holds the layouts'
+# collectives and updates: each step's loss and the first step's gradient
+# norm within PARALLEL_F32_TOL (relative) of one process's, the parameters'
+# change after the steps within PARALLEL_F32_MOVE_TOL of its norm. On an
+# H100 the layouts came within 3.5e-5, 6.7e-5 and 1.5e-3, one process with
+# its features scaled by 1 + 1e-6 within 3.7e-5, 6.0e-5 and 1.7e-3 (the
+# order of the sums, carried by AdamW); on the CPU a data axis that leaves
+# its gradient sum out is 4.5e-3-1.1e-2, 0.49-0.56 and 0.64 off, a halved
+# sum 0.5 off in the gradient norm. bf16, as the checkpoint ships, holds
+# the kernels' path and the forward: each step's loss within
+# PARALLEL_BF16_TOL of one process's. Any change to the arithmetic redraws
+# bf16's rounding (chip_bf16_numerics.py): features scaled by 1 + 1e-7 to
+# 1 + 1e-3 move one process's first loss by 2.4e-4-2.7e-3 and its first
+# gradient by 5.2e-3-2.6e-1 of its norm, out of proportion to the scale
+# (float32: 6.4e-7 and 2.0e-5 at 1e-7, in proportion); tp 2's first
+# gradient is 3.1e-2-8.8e-1 off one process's, in the same leaves (the
+# encoder's q and k). AdamW carries such gaps into the later losses, the
+# more the larger the step: the layouts' reached 3.3e-2 by the fifth step
+# at lr 1e-4, 1.3e-2 at 1e-5 and 7.1e-3 at 1e-6. So bf16 trains at 1e-6,
+# and the update is held in float32.
+PARALLEL_RUNS = [("bfloat16", 1e-6), ("float32", 1e-4)]
+PARALLEL_BF16_TOL = 1e-2
+PARALLEL_F32_TOL = 1e-3
+PARALLEL_F32_MOVE_TOL = 1e-2
+PARALLEL_TIMEOUT_S = 400
+
+
+def parallel_model(tmp: str, dtype: str) -> str:
+    """The base checkpoint computing in ``dtype``: the shipped directory for
+    bfloat16, else a directory in ``tmp`` whose config says ``dtype`` and
+    whose other files link the shipped ones."""
+    if dtype == "bfloat16":
+        return BASE_MODEL
+    folder = os.path.join(tmp, f"base-{dtype}")
+    if not os.path.isdir(folder):
+        os.makedirs(folder)
+        for name in os.listdir(BASE_MODEL):
+            if name != "config.json":
+                os.symlink(os.path.join(BASE_MODEL, name),
+                           os.path.join(folder, name))
+        with open(os.path.join(BASE_MODEL, "config.json")) as f:
+            config = json.load(f)
+        config["compute_dtype"] = dtype
+        with open(os.path.join(folder, "config.json"), "w") as f:
+            json.dump(config, f)
+    return folder
+
+
+def parallel_args(model: str, data: str, model_folder: str, lr: float, **kw):
+    """``run_training``'s arguments of the parallel phase: ``model``, global
+    batch 4 of 2.5 s clips, dropout 0, the frame head on, every step's loss
+    logged."""
+    from whisperseg_torch.training import trainer
+
+    return trainer.TrainArgs(
+        initial_model_path=model, model_folder=model_folder,
+        train_dataset_folder=data, max_num_iterations=PARALLEL_STEPS,
+        batch_size=BATCH, total_spec_columns=1000, max_length=100,
+        learning_rate=lr, warmup_steps=2, print_every=1, num_workers=2,
+        frame_head=True, **kw)
+
+
+def parallel_rank(rank: int, port: int, data: str, out: str) -> None:
+    """One of the two ranks of the parallel phase: joins a gloo group on
+    127.0.0.1:``port`` on ``cuda:0`` (both ranks share the card), trains
+    each layout of each run through ``run_training`` under a ``StepProbe``,
+    and writes each one's per-step losses, first gradient norm, kernel
+    launches and the head counts K2 saw to ``out``.{rank}.json (rank 0's
+    checkpoints to ``<run>/<layout>``)."""
+    import torch.distributed as dist
+
+    from whisperseg_torch.models import whisper
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.parallel import multihost
+    from whisperseg_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    tmp = os.path.dirname(out)
+    heads = []
+    inner = whisper.encoder_attention
+
+    def seen(valid_len, q4, kt4, v4):
+        heads.append(q4.shape[1])
+        return inner(valid_len, q4, kt4, v4)
+    whisper.encoder_attention = seen
+    results = {"backend": dist.get_backend()}
+    for dtype, lr in PARALLEL_RUNS:
+        for name, tp, fsdp in PARALLEL_LAYOUTS:
+            heads.clear()
+            t0 = time.perf_counter()
+            with StepProbe() as probe:
+                trainer.run_training(parallel_args(
+                    parallel_model(tmp, dtype), data,
+                    os.path.join(tmp, f"{dtype}-{lr}", f"{name}-{rank}"), lr,
+                    tp=tp, fsdp=fsdp, device="cuda:0"))
+            results[f"{dtype} {lr} {name}"] = {
+                "losses": probe.losses, "grad_norm": probe.grad_norm,
+                "grad_leaves": probe.grad_leaves,
+                "launches": probe.launches, "lse": attention.launches_lse,
+                "k1": logmel.launches, "collates": probe.collates,
+                "heads": sorted(set(heads)),
+                "step_ms": [t * 1e3 for t in probe.times],
+                "s": time.perf_counter() - t0}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _leaf_gaps(got: dict, want: dict, n: int = 3) -> str:
+    """The ``n`` leaves whose gradient norms differ most: name, norm, the
+    other norm."""
+    top = sorted(want, key=lambda k: -abs(got[k] - want[k]))[:n]
+    return "leaves " + ", ".join(f"{k} {got[k]:.4f} ({want[k]:.4f})"
+                                 for k in top)
+
+
+def _final_params(folder: str) -> dict:
+    """The flat parameters of ``folder``/final_checkpoint."""
+    from whisperseg_torch.checkpoint import _flatten, load_checkpoint
+
+    return _flatten(load_checkpoint(os.path.join(folder, "final_checkpoint"))[0])
+
+
+def _moved(init: dict, got: dict, ref: dict):
+    """(|change - one process's change| / |one process's change|, rms of
+    one process's change) of the parameters ``got`` and ``ref`` from
+    ``init`` (float64 sums)."""
+    num = den = 0.0
+    for k, p0 in init.items():
+        num += float((got[k].double() - ref[k].double()).square().sum())
+        den += float((ref[k].double() - p0.double()).square().sum())
+    size = sum(p.numel() for p in init.values())
+    return (num / den) ** 0.5, (den / size) ** 0.5
+
+
+def parallel_phase(device, plain=None) -> None:
+    """Two ranks share ``cuda:0`` over gloo (NCCL needs a card a rank) and
+    train the base checkpoint for PARALLEL_STEPS steps at global batch 4 in
+    three layouts, dp 2, tp 2 and dp 2 with fsdp, through ``run_training``
+    under an initialized process group, once for each of PARALLEL_RUNS
+    (compute dtype, learning rate; it says what each must match); beside
+    them one process trains on the global batch, and once more with its
+    features scaled by 1 + 1e-6 (a control, printed). Every rank must
+    launch K2 (with its log-sum-exp), dK/dV and dQ once an encoder layer a
+    step, K2 at 8 heads (dp) or 4 (tp). Then
+    ``Segmenter(mesh=make_mesh(devices=[cuda:0, cuda:0]))`` must give the plain Segmenter's table (``plain``: the serve
+    phase's, else one is made), each batch split over two threads (K1 twice
+    a batch, K2 once an encoder layer a launch of K1). Every result is
+    printed before the phase fails on any."""
+    import tempfile
+
+    from whisperseg_torch.ops import attention, logmel
+    from whisperseg_torch.parallel import make_mesh
+    from whisperseg_torch.parallel.multihost import free_port
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts, write_tone_dataset
+    from whisperseg_torch.training import trainer
+
+    start = time.perf_counter()
+    layers = 6
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_tone_dataset(os.path.join(tmp, "data"), TRAIN_FILES,
+                                  seed=700)
+        port = free_port()
+        out = os.path.join(tmp, "rank")
+        cmd = ("import chip_smoke as c; c.parallel_rank({}, %d, %r, %r)"
+               % (port, data, out))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", cmd.format(r)],
+                                  cwd=ROOT) for r in range(2)]
+        refs = {}
+        try:
+            # one process on the global batch, and a control: the same
+            # with its features scaled by 1 + 1e-6
+            for dtype, lr in PARALLEL_RUNS:
+                for control in (False, True):
+                    name = "one, features scaled" if control else "one"
+                    with StepProbe(keep_init=dtype == "float32",
+                                   scale=1 + 1e-6 if control else 1.0) as ref:
+                        trainer.run_training(parallel_args(
+                            parallel_model(tmp, dtype), data, os.path.join(
+                                tmp, f"{dtype}-{lr}", name), lr,
+                            n_device=1, device=device))
+                    refs[dtype, lr, control] = ref
+                ref = refs[dtype, lr, False]
+                print(f"  one process, {dtype}, lr {lr:g}, global batch "
+                      f"{BATCH}: losses "
+                      f"{', '.join(f'{x:.6f}' for x in ref.losses)}; first "
+                      f"gradient norm {ref.grad_norm:.6f}; median step "
+                      f"{np.median(ref.times[1:]) * 1e3:.2f} ms (beside the "
+                      f"ranks)", flush=True)
+            codes = [p.wait(timeout=PARALLEL_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if codes != [0, 0]:
+            raise AssertionError(f"parallel ranks exited with {codes}")
+        ranks = []
+        for r in range(2):
+            with open(f"{out}.{r}.json") as f:
+                ranks.append(json.load(f))
+        print(f"  2 ranks on cuda:0 over {ranks[0]['backend']} (NCCL needs a "
+              f"card a rank), "
+              f"{time.perf_counter() - t0:.1f} s for {len(PARALLEL_RUNS)} x "
+              f"{len(PARALLEL_LAYOUTS)} runs, process start included",
+              flush=True)
+        f32 = next((refs[k] for k in refs if k[0] == "float32" and not k[2]),
+                   None)
+        for dtype, lr in PARALLEL_RUNS:
+            ref = refs[dtype, lr, False]
+            if f32 is not None and ref is not f32:
+                print(f"  one process, {dtype} against float32: first "
+                      f"gradient norm {ref.grad_norm:.6f} against "
+                      f"{f32.grad_norm:.6f}; "
+                      f"{_leaf_gaps(ref.grad_leaves, f32.grad_leaves)}",
+                      flush=True)
+            folder = os.path.join(tmp, f"{dtype}-{lr}")
+            ref_params = (_final_params(os.path.join(folder, "one"))
+                          if ref.init is not None else None)
+
+            def gaps(got, name):
+                """(largest loss gap, gradient norm gap, change gap or None,
+                the line's text) of a run against one process's."""
+                rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                           ref.losses)]
+                grad = abs(got["grad_norm"] - ref.grad_norm) / ref.grad_norm
+                move, moved = None, ""
+                if ref_params is not None:
+                    move, rms = _moved(ref.init, _final_params(
+                        os.path.join(folder, name)), ref_params)
+                    moved = (f"; parameters' change: rms {rms:.3e}, gap "
+                             f"{move:.2e} of its norm")
+                text = (f"losses {', '.join(f'{x:.6f}' for x in got['losses'])}"
+                        f" (relative gaps {', '.join(f'{x:.2e}' for x in rel)});"
+                        f" first gradient norm {got['grad_norm']:.6f} (gap "
+                        f"{grad:.2e}; "
+                        f"{_leaf_gaps(got['grad_leaves'], ref.grad_leaves)})"
+                        f"{moved}")
+                return max(rel), grad, move, text
+
+            control = vars(refs[dtype, lr, True])
+            print(f"  {dtype} lr {lr:g} one process, features x (1 + 1e-6): "
+                  f"{gaps(control, 'one, features scaled')[3]}", flush=True)
+            for name, tp, fsdp in PARALLEL_LAYOUTS:
+                for r, res in enumerate(ranks):
+                    got = res[f"{dtype} {lr} {name}"]
+                    loss, grad, move, text = gaps(got, f"{name}-0")
+                    print(f"  {dtype} lr {lr:g} {name} rank {r}: {text}; "
+                          f"(K2, dkv, dq) a step "
+                          f"{sorted(set(map(tuple, got['launches'])))}, K2 "
+                          f"with lse {got['lse']}, K1 {got['k1']} for "
+                          f"{got['collates']} batches, K2 heads "
+                          f"{got['heads']}; median step "
+                          f"{np.median(got['step_ms'][1:]):.2f} ms; run "
+                          f"{got['s']:.1f} s", flush=True)
+                    if dtype == "float32":
+                        close = (loss <= PARALLEL_F32_TOL
+                                 and grad <= PARALLEL_F32_TOL
+                                 and move <= PARALLEL_F32_MOVE_TOL)
+                    else:
+                        close = loss <= PARALLEL_BF16_TOL
+                    if not (close and len(got["losses"]) == PARALLEL_STEPS
+                            and {tuple(x) for x in got["launches"]}
+                            == {(layers, layers, layers)}
+                            and got["lse"] == layers * PARALLEL_STEPS
+                            and got["k1"] == got["collates"]
+                            and got["heads"] == [8 // tp]):
+                        failed.append(f"{dtype} lr {lr:g} {name} rank {r}")
+
+    cuda0 = torch.device("cuda", 0)
+    if plain is None:
+        plain = Segmenter.from_pretrained(BASE_MODEL, device=device)
+    meshed = Segmenter.from_pretrained(BASE_MODEL,
+                                       mesh=make_mesh(devices=[cuda0, cuda0]))
+    audio = tone_bursts(106, duration=10.0)
+    want = plain.segment(audio, SR, num_trials=3)
+    calls = _counted_batches(meshed)
+    logmel.launches = attention.launches = 0
+    table, dt = timed(lambda: meshed.segment(audio, SR, num_trials=3))
+    k1, k2 = logmel.launches, attention.launches
+    print(f"  Segmenter(mesh=[cuda:0, cuda:0]), bfloat16: 10 s, 3 trials -> "
+          f"{len(table['onset'])} segments in {dt:.3f} s, "
+          f"{'the same table as' if table == want else 'NOT the table of'} "
+          f"the plain Segmenter; {calls[0]} batches, launches K1 {k1}, K2 "
+          f"{k2}", flush=True)
+    if table != want or k1 != 2 * calls[0] or k2 != layers * k1:
+        failed.append(f"mesh segmenter: {table} vs {want}; K1 {k1}, K2 {k2}, "
+                      f"batches {calls[0]}")
+    print(f"  parallel phase {time.perf_counter() - start:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"parallel phase: {failed}")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2545,6 +3029,14 @@ def main() -> int:
     print("[pretrain] synthetic pretraining of the base size over a pool on "
           "the card", flush=True)
     pretrain_phase(device)
+    print("[hf] base checkpoint exported to a HuggingFace directory and "
+          "served from it", flush=True)
+    hf_phase(device, seg)
+    print(f"[parallel] base checkpoint, two ranks on cuda:0 over gloo: "
+          f"{', '.join(n for n, _, _ in PARALLEL_LAYOUTS)}, each in "
+          f"{' and '.join(f'{d} at lr {lr:g}' for d, lr in PARALLEL_RUNS)}; "
+          f"then a mesh Segmenter", flush=True)
+    parallel_phase(device, seg)
     for row in rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"] > 0:

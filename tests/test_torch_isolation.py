@@ -45,7 +45,8 @@ def _imports(path):
 
 
 def test_no_jax_or_reference_package_import_anywhere():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "chip_bf16_numerics.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "whisperseg_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
@@ -79,7 +80,12 @@ def test_no_jax_or_reference_package_import_anywhere():
             "whisperseg_torch/audio/viewer.py",
             "whisperseg_torch/refine.py",
             "whisperseg_torch/augment.py", "whisperseg_torch/pretrain.py",
-            "whisperseg_torch/models/gqa.py"} <= scanned
+            "whisperseg_torch/models/gqa.py",
+            "whisperseg_torch/models/convert_hf.py",
+            "whisperseg_torch/models/export_hf.py",
+            "whisperseg_torch/parallel/__init__.py",
+            "whisperseg_torch/parallel/mesh.py",
+            "whisperseg_torch/parallel/multihost.py"} <= scanned
     # neither JAX nor the JAX package, nor the packages the chip machine
     # lacks (the JAX package's CLI and services use some of them)
     banned = ("jax", "jaxlib", "whisperseg_tpu", "pandas", "tqdm", "requests",
@@ -87,6 +93,31 @@ def test_no_jax_or_reference_package_import_anywhere():
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, (path, mod)
+
+
+def test_hf_and_parallel_modules_without_jax(tmp_path):
+    """The HF conversion and the parallel layer import, and an HF export of
+    the tiny checkpoint reads back through ``from_pretrained``, with JAX
+    unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch; torch.set_num_threads(1)  # beside other test processes\n"
+        "import whisperseg_torch.parallel\n"
+        "from whisperseg_torch.parallel import multihost\n"
+        "from whisperseg_torch.models import convert_hf, export_hf\n"
+        "from whisperseg_torch.checkpoint import load_checkpoint\n"
+        "from whisperseg_torch.segmenter import Segmenter\n"
+        f"params, cfg = load_checkpoint({TINY!r})\n"
+        f"out = export_hf.export_hf_checkpoint(params, cfg, {str(tmp_path)!r})\n"
+        "seg = Segmenter.from_pretrained(out, device='cpu')\n"
+        "assert seg.config.d_model == cfg.d_model\n"
+        "assert not any(m == 'whisperseg_tpu' or m.startswith('whisperseg_tpu.')\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
 
 
 def test_service_frame_mode_and_cli_without_jax(tmp_path):

@@ -37,6 +37,7 @@ from whisperseg_torch.audio import frontend
 from whisperseg_torch.audio.io import save_wav
 from whisperseg_torch.checkpoint import load_checkpoint
 from whisperseg_torch.cli import segment as cli
+from whisperseg_torch.parallel import make_mesh
 from whisperseg_torch.segmenter import Segmenter
 from whisperseg_torch.services import segment_service
 from whisperseg_torch.services.batching import BatchingSegmenter
@@ -212,10 +213,27 @@ def test_close_stops_the_worker():
         seg.segment(tone_bursts(71, duration=2.5), SR, num_beams=1)
 
 
-def test_a_mesh_is_refused():
+def test_a_mesh_is_refused(plain):
+    """A mesh is accepted now: its buckets round up to the mesh's device
+    count, and fused requests give the plain batcher's tables."""
     params, cfg = _tiny()
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        BatchingSegmenter(params, cfg, device="cpu", mesh=object())
+    cpu = torch.device("cpu")
+    seg = BatchingSegmenter(params, cfg, inference_dtype="float32",
+                            mesh=make_mesh(devices=[cpu] * 2), min_bucket=1,
+                            max_batch_size=8)
+    try:
+        assert seg.device == cpu and seg.mesh.size == 2
+        assert [seg._bucket(n) for n in (1, 2, 3, 5)] == [2, 2, 4, 8]
+        audio = tone_bursts(71, duration=2.5)
+        kw = dict(num_beams=1, num_trials=1, frame_split=0, frame_refine_ms=0,
+                  frame_filter=0)
+        assert seg.segment(audio, SR, **kw) == plain.segment(audio, SR, **kw)
+        assert seg.fused_batches == 1
+    finally:
+        seg.close()
+    with pytest.raises(ValueError, match="not both"):
+        BatchingSegmenter(params, cfg, device="cpu",
+                          mesh=make_mesh(devices=[cpu]))
 
 
 # -------------------------------------------------------------------- service

@@ -292,10 +292,27 @@ def test_segmenter_on_live_training_params_sees_updates():
     ("tp", 2), ("fsdp", True), ("use_wandb", True), ("n_device", 2)])
 def test_later_slice_options_raise_naming_their_roadmap_item(field, value,
                                                              tmp_path):
+    """Only ``use_wandb`` still raises (its package is absent); ``tp``,
+    ``fsdp`` and ``n_device`` are accepted and size the data axis as the
+    JAX package does (test_torch_parallel.py trains with them)."""
     args = tt.TrainArgs(initial_model_path="tiny", device="cpu",
                         model_folder=str(tmp_path), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 1[13]"):
-        tt.run_training(args)
+    if field == "use_wandb":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue A item 11"):
+            tt.run_training(args)
+        return
+    tt._check_supported(args)
+    want = jt_data_width(args.batch_size, args.n_device or 4, args.tp)
+    assert tt.data_width(args, args.n_device or 4) == want
+    assert want * args.tp == (4 if field != "n_device" else 2)
+
+
+def jt_data_width(batch_size: int, available: int, tp: int) -> int:
+    """The JAX package's data width (trainer.py's run_training)."""
+    dp_max = max(available // tp, 1)
+    return next(d for d in range(min(dp_max, batch_size), 0, -1)
+                if batch_size % d == 0)
 
 
 def test_run_training_without_device_needs_cuda(monkeypatch, tmp_path):

@@ -4,8 +4,13 @@ flags, plus ``--device``).
     python -m whisperseg_torch.cli.train --initial_model_path DIR \
         --model_folder OUT --train_dataset_folder DATA
 
-``--use_wandb`` and several devices (``--tp``, ``--fsdp``, ``--n_device``
-above 1) raise ``NotImplementedError`` naming their ROADMAP item.
+Several devices: ``--n_device N`` (one process a device, started by the
+run: ``cuda:0`` .. ``cuda:N-1``, or CPU ranks under ``--device cpu``),
+``--tp`` (tensor parallelism) and ``--fsdp 1`` (sharded parameters). A
+process group started otherwise (``torchrun`` running a script that calls
+``parallel.multihost.initialize()`` and then ``run_training``) is trained
+over as it is. ``--use_wandb`` raises ``NotImplementedError`` (the package
+is absent).
 """
 
 from __future__ import annotations
@@ -18,12 +23,14 @@ from ..training import TrainArgs, run_training
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--initial_model_path", required=True,
-                   help="checkpoint dir (params.npz) or a size name tiny/"
-                        "base/small/medium/large")
+                   help="checkpoint dir (params.npz, or a HuggingFace "
+                        "Whisper directory) or a size name tiny/base/small/"
+                        "medium/large")
     p.add_argument("--model_folder", required=True)
     p.add_argument("--train_dataset_folder", required=True)
     p.add_argument("--n_device", type=int, default=None,
-                   help="one device only for now")
+                   help="devices to train on (default: every CUDA "
+                        "device; 1 on the CPU)")
     p.add_argument("--gpu_list", type=int, nargs="+", default=None,
                    help="accepted for compat; device selection is automatic")
     p.add_argument("--use_wandb", type=int, default=0)
@@ -90,9 +97,9 @@ def build_parser():
     p.add_argument("--clear_cluster_codebook", type=int, default=1)
     p.add_argument("--ignore_cluster", type=int, default=0)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor parallelism (not ported yet)")
+                   help="tensor-parallel width over the device mesh")
     p.add_argument("--fsdp", type=int, default=0,
-                   help="sharded parameters (not ported yet)")
+                   help="shard the parameters over the data axis")
     p.add_argument("--remat", type=int, default=0,
                    help="recompute each layer's activations in the backward "
                         "(less device memory, more work)")

@@ -111,3 +111,13 @@ def parse_segments_from_ids(
         else:
             i += 1
     return out
+
+
+def parse_segments_from_text(
+    text: str,
+    spec_time_step: float,
+    inverse_cluster_codebook: Dict[int, str],
+) -> List[List]:
+    """:func:`parse_segments_from_ids` over ``tokenizer.encode_text(text)``."""
+    return parse_segments_from_ids(
+        tok.encode_text(text), spec_time_step, inverse_cluster_codebook)

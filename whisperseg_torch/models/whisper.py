@@ -27,6 +27,14 @@ ops/attention.py). Dropout draws from ``torch.Generator``s: each layer's
 seed is drawn from the caller's generator before the layer runs, and its
 masks come from a generator made from that seed inside the layer, so a
 rematerialized layer makes the same masks (JAX splits one key per layer).
+
+Under tensor parallelism (parallel/mesh.py ``model_parallel``) a rank holds
+a column slice of q/k/v/fc1 (and xq/xk/xv) and a row slice of o/fc2/xo,
+and runs with ``num_heads / tp`` heads of the same width (``_split_heads``
+derives the width from the local one): each column-parallel input goes
+through ``copy_to_model`` and each row-parallel product through
+``reduce_from_model`` before its bias. Without a model group both are the
+identity.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..ops.cross_attention import (cross_attention_int8, dequantize_kv,
                                    quantize_kv_for_kernel)
 from ..ops.dot import dot_f32
 from ..ops.quant import Quant4Tensor, QuantTensor, dequantize, qdot
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .config import WhisperConfig
 
 Params = Dict[str, object]
@@ -261,10 +270,11 @@ def _project_heads_t(h, w, heads: int, cdt):
 
 
 def _oproj_heads(a4, w, b, cdt):
-    """a4 [B, H, S, hd] @ w [H*hd, D] + b -> [B, S, D] float32."""
+    """a4 [B, H, S, hd] @ w [H*hd, D] + b -> [B, S, D] float32 (a
+    row-parallel product: summed over the model axis before the bias)."""
     bsz, heads, s, hd = a4.shape
     a = a4.permute(0, 2, 1, 3).reshape(bsz, s, heads * hd)
-    return dot_f32(a, _dense(w, cdt), cdt) + b
+    return reduce_from_model(dot_f32(a, _dense(w, cdt), cdt)) + b
 
 
 def _conv3(x, w, stride: int, cdt):
@@ -333,7 +343,7 @@ def _encoder_layer(x, lp: Params, s: int, cfg: WhisperConfig, rate: float,
                    seed: Optional[int]):
     cdt = compute_dtype(cfg)
     gen = _seeded(seed, x.device) if rate > 0.0 else None
-    h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    h = copy_to_model(_layer_norm(x, lp["ln1_g"], lp["ln1_b"]))
     q4 = _project_heads(h, lp["q_w"], lp["q_b"], cfg.num_heads, cdt)
     kt4 = _project_heads_t(h, lp["k_w"], cfg.kv_heads, cdt)
     v4 = _project_heads(h, lp["v_w"], lp["v_b"], cfg.kv_heads, cdt)
@@ -342,9 +352,9 @@ def _encoder_layer(x, lp: Params, s: int, cfg: WhisperConfig, rate: float,
     if rate > 0.0:
         a = _dropout(a, rate, gen)
     x = x + a
-    h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    h = copy_to_model(_layer_norm(x, lp["ln2_g"], lp["ln2_b"]))
     h = F.gelu(_dot(h, lp["fc1_w"], cdt) + lp["fc1_b"])
-    h = _dot(h, lp["fc2_w"], cdt) + lp["fc2_b"]
+    h = reduce_from_model(_dot(h, lp["fc2_w"], cdt)) + lp["fc2_b"]
     if rate > 0.0:
         h = _dropout(h, rate, gen)
     return x + h
@@ -389,16 +399,26 @@ def frame_head_forward(params: Params, cfg: WhisperConfig,
 
 
 def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
-                    boundary_weight: float = 1.0):
+                    boundary_weight: float = 1.0, allreduce=None):
     """Multi-task frame loss: sigmoid BCE (mean over all positions) on the
     vocal channel and, scaled by ``boundary_weight``, on the soft onset and
     offset channels; softmax CE over the cluster logits masked to labelled
     positions (``targets["cluster"]`` >= 0), scaled by
-    ``cluster_pos_weight``. ``targets``: [B, S] tensors."""
+    ``cluster_pos_weight``. ``targets``: [B, S] tensors.
+
+    ``allreduce`` (a sum over the ranks that share a global batch) makes
+    each mean's denominator the global batch's, so the ranks' losses add up
+    to the global batch's loss."""
+    def mean(v):
+        if allreduce is None:
+            return torch.mean(v)
+        return v.sum() / allreduce(torch.tensor(float(v.numel()),
+                                                device=v.device))
+
     def bce(logit, target):
         # the stable x - x z + log(1 + exp(-|x|)) form
-        return torch.mean(torch.clamp_min(logit, 0) - logit * target
-                          + torch.log1p(torch.exp(-logit.abs())))
+        return mean(torch.clamp_min(logit, 0) - logit * target
+                    + torch.log1p(torch.exp(-logit.abs())))
 
     loss = (bce(logits[..., 0], targets["vocal"])
             + boundary_weight * (bce(logits[..., 1], targets["onset"])
@@ -409,7 +429,9 @@ def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
         mask = cluster >= 0
         safe = torch.where(mask, cluster, 0).long()
         nll = -logp.gather(-1, safe[..., None])[..., 0]
-        denom = torch.clamp_min(mask.sum(), 1)
+        count = mask.sum()
+        denom = torch.clamp_min(count if allreduce is None
+                                else allreduce(count), 1)
         loss = loss + cluster_pos_weight * torch.where(
             mask, nll, torch.zeros((), device=nll.device)).sum() / denom
     return loss
@@ -547,27 +569,29 @@ def _decoder_layer(x, lp: Params, enc_out, causal, cfg: WhisperConfig,
     cdt = compute_dtype(cfg)
     heads, kv_heads = cfg.num_heads, cfg.kv_heads
     gen = _seeded(seed, x.device) if rate > 0.0 else None
-    h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    h = copy_to_model(_layer_norm(x, lp["ln1_g"], lp["ln1_b"]))
     q = _split_heads(_dot(h, lp["q_w"], cdt) + lp["q_b"], heads)
     k = _split_heads(_dot(h, lp["k_w"], cdt), kv_heads)
     v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads)
-    a = _dot(_attention(q, k, v, cdt, mask=causal), lp["o_w"], cdt) + lp["o_b"]
+    a = reduce_from_model(_dot(_attention(q, k, v, cdt, mask=causal),
+                               lp["o_w"], cdt)) + lp["o_b"]
     if rate > 0.0:
         a = _dropout(a, rate, gen)
     x = x + a
 
-    h = _layer_norm(x, lp["lnx_g"], lp["lnx_b"])
+    h = copy_to_model(_layer_norm(x, lp["lnx_g"], lp["lnx_b"]))
     q = _split_heads(_dot(h, lp["xq_w"], cdt) + lp["xq_b"], heads)
     k = _split_heads(_dot(enc_out, lp["xk_w"], cdt), kv_heads)
     v = _split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"], kv_heads)
-    a = _dot(_attention(q, k, v, cdt), lp["xo_w"], cdt) + lp["xo_b"]
+    a = reduce_from_model(_dot(_attention(q, k, v, cdt), lp["xo_w"],
+                               cdt)) + lp["xo_b"]
     if rate > 0.0:
         a = _dropout(a, rate, gen)
     x = x + a
 
-    h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    h = copy_to_model(_layer_norm(x, lp["ln2_g"], lp["ln2_b"]))
     h = F.gelu(_dot(h, lp["fc1_w"], cdt) + lp["fc1_b"])
-    h = _dot(h, lp["fc2_w"], cdt) + lp["fc2_b"]
+    h = reduce_from_model(_dot(h, lp["fc2_w"], cdt)) + lp["fc2_b"]
     if rate > 0.0:
         h = _dropout(h, rate, gen)
     return x + h
@@ -592,6 +616,7 @@ def decoder_forward_train(params: Params, cfg: WhisperConfig,
     rate = cfg.dropout if train else 0.0
     n = cfg.decoder_layers
     seeds = _layer_seeds(generator, n) if rate > 0.0 else [None] * n
+    enc_out = copy_to_model(enc_out)  # the input of every layer's xk / xv
     for lp, seed in zip(_layers(dec["layers"], n), seeds):
         x = _run(_decoder_layer, cfg.remat, x, lp, enc_out, causal, cfg, rate,
                  seed)
@@ -601,13 +626,15 @@ def decoder_forward_train(params: Params, cfg: WhisperConfig,
 
 def cross_entropy_loss(logits, labels, ignore_id: int = -100,
                        timestamp_weight: float = 1.0,
-                       timestamp_sigma: float = 0.0):
+                       timestamp_sigma: float = 0.0, allreduce=None):
     """Mean token cross-entropy over the targets that are not ``ignore_id``.
     ``timestamp_weight`` weighs timestamp targets against the others;
     ``timestamp_sigma`` > 0 replaces a timestamp's one-hot target with a
     discrete Gaussian over neighbouring columns (stddev in columns,
     truncated at 3 sigma, renormalized; neighbours past either end clip onto
-    the edge column)."""
+    the edge column). ``allreduce`` (a sum over the ranks that share a
+    global batch) divides by the global batch's token weight, so the ranks'
+    losses add up to the global batch's loss."""
     labels = labels.long()
     mask = labels != ignore_id
     safe = torch.where(mask, labels, 0)
@@ -628,4 +655,7 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -100,
     one = torch.ones((), device=nll.device)
     token_w = torch.where(is_ts, one * timestamp_weight, one)
     token_w = torch.where(mask, token_w, torch.zeros((), device=nll.device))
-    return (nll * token_w).sum() / torch.clamp_min(token_w.sum(), 1e-6)
+    total = token_w.sum()
+    if allreduce is not None:
+        total = allreduce(total.detach())
+    return (nll * token_w).sum() / torch.clamp_min(total, 1e-6)

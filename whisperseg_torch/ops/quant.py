@@ -196,35 +196,38 @@ def quantize_params(params: dict, bits: int = 8) -> dict:
 # master weights stay float32 for the optimizer.
 
 
-class _SteQuant8(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, w):
+def fake_grid(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """float32 ``w`` on its per-channel int8 (``bits`` 8) or group-wise
+    int4 (4) grid: the values the quantized inference path computes with."""
+    if bits == 8:
         qt = quantize(w)
         return qt.values.float() * qt.scale
+    return unpack4(quantize4(w), torch.float32)
+
+
+class _SteTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, target):
+        return target.view_as(target)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
-class _SteQuant4(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, w):
-        return unpack4(quantize4(w), torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
+def ste_to(w: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``target``'s values with ``w``'s gradient passed straight through."""
+    return _SteTo.apply(w, target)
 
 
 def ste_quant8(w: torch.Tensor) -> torch.Tensor:
     """float32 ``w`` on its per-channel int8 grid; identity gradient."""
-    return _SteQuant8.apply(w)
+    return ste_to(w, fake_grid(w.detach(), 8))
 
 
 def ste_quant4(w: torch.Tensor) -> torch.Tensor:
     """float32 ``w`` on its group-wise int4 grid; identity gradient."""
-    return _SteQuant4.apply(w)
+    return ste_to(w, fake_grid(w.detach(), 4))
 
 
 def fake_quantize_params(params: dict, bits: int) -> dict:

@@ -23,16 +23,25 @@ mode (features, encoder and frame head, then ``refine.segments_from_tracks``);
 (audio/stream.py) and gives ``segment()``'s table; and ``warmup()``, which
 builds the kernels and runs one batch of each path before a service takes
 requests. ``set_draft_model()`` turns on greedy speculative decoding
-(decode.generate_speculative) for the requests it applies to. HF-format
-checkpoints raise ``NotImplementedError`` naming their ROADMAP item.
+(decode.generate_speculative) for the requests it applies to.
+``from_pretrained`` reads our checkpoints and HF-format ones
+(models/convert_hf.py).
+
+``Segmenter(..., mesh=make_mesh(...))`` (parallel/mesh.py) puts a copy of
+the weights on each device of the mesh's data axis, splits each padded
+batch by rows over them, decodes each part on its own device (one host
+thread a device) and puts the rows back in order; sampling noise is drawn
+for the whole batch and cut by rows, so tables equal ``mesh=None``'s.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,6 +57,7 @@ from .constants import fft_time_delta
 from .decode import generate, generate_speculative, gumbel_noise, samples
 from .hub import download_model
 from .models.config import WhisperConfig
+from .models.convert_hf import import_hf_checkpoint
 from .models.whisper import encoder_forward, frame_head_forward
 from .ops import _build
 from .ops.quant import quantize_params
@@ -142,6 +152,30 @@ def _pad_rows(chunk: np.ndarray, rows: int) -> np.ndarray:
                          chunk.dtype)])
 
 
+class _RowNoise:
+    """Sampling noise for a batch split by rows: each step's noise is drawn
+    once for the whole batch, from ``draw`` in step order, and each part
+    takes its rows of it (:meth:`part`)."""
+
+    def __init__(self, draw, rows: int, device):
+        self.draw, self.rows, self.device = draw, rows, device
+        self.steps: List[torch.Tensor] = []
+        self.lock = threading.Lock()
+
+    def part(self, start: int, stop: int):
+        count = itertools.count()
+
+        def draw(shape, device):
+            k = next(count)
+            with self.lock:
+                while len(self.steps) <= k:
+                    self.steps.append(self.draw(
+                        (self.rows,) + tuple(shape[1:]), self.device))
+                step = self.steps[k]
+            return step[start:stop].to(device)
+        return draw
+
+
 def _bf16_draft(params: dict, device) -> dict:
     """A draft model's tree on ``device`` with its float32 leaves in
     bfloat16, as the JAX package casts a draft."""
@@ -160,10 +194,15 @@ class Segmenter:
     from the parameters as given (float32 from a checkpoint) with the rest in
     bfloat16. ``None`` keeps ``params`` itself, neither cast nor moved: a
     training run validates on its live float32 weights, which its optimizer
-    updates in place (they must already lie on ``device``)."""
+    updates in place (they must already lie on ``device``).
+
+    ``mesh`` (parallel/mesh.py) replaces ``device``: the weights are copied
+    to every device of its data axis (``self.device`` is the first) and
+    each batch is split by rows over them."""
 
     def __init__(self, params, config: WhisperConfig,
-                 inference_dtype: Optional[str] = "bfloat16", device=None):
+                 inference_dtype: Optional[str] = "bfloat16", device=None,
+                 mesh=None):
         if inference_dtype in _QUANT_BITS:
             params = quantize_params(params, bits=_QUANT_BITS[inference_dtype])
             dtype = torch.bfloat16
@@ -171,6 +210,14 @@ class Segmenter:
             dtype = _INFERENCE_DTYPES[inference_dtype]
         elif inference_dtype is not None:
             raise ValueError(f"unsupported inference_dtype {inference_dtype!r}")
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both")
+            # one replica for each device of the data axis
+            self._mesh_devices = [mesh.devices[i, 0]
+                                  for i in range(mesh.devices.shape[0])]
+            device = self._mesh_devices[0]
         self.device = resolve_device(device)
         self.params = (params if inference_dtype is None
                        else cast_params(params, dtype, self.device))
@@ -189,21 +236,22 @@ class Segmenter:
 
     @classmethod
     def from_pretrained(cls, model_path: str, inference_dtype: str = "bfloat16",
-                        device=None) -> "Segmenter":
-        """Load a checkpoint directory holding ``params.npz`` +
-        ``config.json``, or a built-in or cached model by name
-        (hub.download_model)."""
-        device = resolve_device(device)
+                        device=None, mesh=None) -> "Segmenter":
+        """Load a checkpoint directory, ours (``params.npz`` +
+        ``config.json``) or a HuggingFace one (``model.safetensors`` or
+        ``pytorch_model.bin`` + tokenizer files, imported by
+        models/convert_hf.py), or a built-in or cached model by name
+        (hub.download_model). ``mesh`` is as for the constructor."""
+        device = resolve_device(device) if mesh is None else device
         resolved = (model_path if os.path.isdir(model_path)
                     else download_model(model_path))
-        if not os.path.exists(os.path.join(resolved, "params.npz")):
-            raise NotImplementedError(
-                f"{model_path!r} is not a params.npz checkpoint directory; "
-                f"HF-format checkpoints are not ported yet: ROADMAP.md Queue A "
-                f"item 12 (HF import/export)")
-        params, config = load_checkpoint(resolved)
+        if os.path.exists(os.path.join(resolved, "params.npz")):
+            params, config = load_checkpoint(resolved)
+        else:
+            params, config = import_hf_checkpoint(resolved,
+                                                  total_spec_columns=None)
         return cls(params, config, inference_dtype=inference_dtype,
-                   device=device)
+                   device=device, mesh=mesh)
 
     def set_draft_model(self, model_path: str, spec_k: int = 4):
         """Turn on greedy speculative decoding: a small draft checkpoint of
@@ -301,6 +349,22 @@ class Segmenter:
         feats = frontend.features_for_clips(x, self.total_spec_columns)
         return encoder_forward(self.params, self.config, feats)
 
+    def _replica(self, device: torch.device):
+        """(params, draft) on ``device``: a mesh's copies, made once for
+        the current weights and draft."""
+        draft = getattr(self, "draft", None)
+        if device == self.device:
+            return self.params, draft
+        of = (id(self.params), id(draft))
+        if getattr(self, "_replicas_of", None) != of:
+            self._replicas, self._replicas_of = {}, of
+        if device not in self._replicas:
+            self._replicas[device] = (
+                cast_params(self.params, None, device),
+                None if draft is None else (cast_params(draft[0], None, device),
+                                            draft[1]))
+        return self._replicas[device]
+
     @torch.no_grad()
     def _decode_batch(self, chunk: np.ndarray, frontend: Frontend,
                       max_length: int, num_beams: int, length_penalty: float,
@@ -310,26 +374,73 @@ class Segmenter:
         """One device batch of clips [B, clip_samples]: frontend -> encoder ->
         decode. Returns tokens [B, max_length] on the device, with
         ``collect_frames=True`` also the frame head's (probs, cluster) from
-        the same encoder pass."""
-        cfg = self.config
-        x = torch.from_numpy(chunk).to(self.device)
-        feats = frontend.features_for_clips(x, self.total_spec_columns)
-        enc = encoder_forward(self.params, cfg, feats)
-        if self._use_spec(num_beams, top_k, top_p, constrained, int8_kv):
-            dparams, dcfg = self.draft
-            tokens = generate_speculative(
-                self.params, cfg, dparams, dcfg, feats, max_length=max_length,
-                spec_k=self.spec_k, enc_out=enc,
-                stats=self.spec_stats)
-        else:
-            tokens = generate(self.params, cfg, max_length=max_length,
-                              num_beams=num_beams, top_k=top_k, top_p=top_p,
-                              length_penalty=length_penalty,
-                              constrained=constrained, int8_kv=int8_kv,
-                              enc_out=enc, noise=noise)
+        the same encoder pass. On a mesh the rows are split over its data
+        devices, each part decoded on its own thread, and the results put
+        back together on ``self.device``."""
+        args = (frontend, max_length, num_beams, length_penalty, int8_kv,
+                top_k, top_p, constrained)
+        if self.mesh is None:
+            return self._decode_rows(chunk, self.device, *args, noise,
+                                     collect_frames,
+                                     getattr(self, "spec_stats", None))
+        devices = self._mesh_devices
+        rows = chunk.shape[0]
+        if rows % len(devices):
+            raise ValueError(f"a batch of {rows} rows does not divide over "
+                             f"the mesh's {len(devices)} data devices")
+        per = rows // len(devices)
+        for device in devices:  # the copies, made here, not on the threads
+            self._replica(device)
+        row_noise = None if noise is None else _RowNoise(noise, rows,
+                                                         self.device)
+        stats = [{} for _ in devices]
+
+        def part(i):
+            return self._decode_rows(
+                chunk[i * per:(i + 1) * per], devices[i], *args,
+                None if row_noise is None else row_noise.part(
+                    i * per, (i + 1) * per),
+                collect_frames, stats[i])
+
+        with ThreadPoolExecutor(len(devices)) as pool:
+            outs = list(pool.map(part, range(len(devices))))
+        sink = getattr(self, "spec_stats", None)
+        if sink is not None:
+            for st in stats:
+                for k, v in st.items():
+                    sink[k] = sink.get(k, 0) + v
         if collect_frames:
-            return (tokens, *_frame_outputs(self.params, cfg, enc))
-        return tokens
+            return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                         for j in range(3))
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _decode_rows(self, chunk: np.ndarray, device, frontend: Frontend,
+                     max_length: int, num_beams: int, length_penalty: float,
+                     int8_kv: bool, top_k: int, top_p: float,
+                     constrained: bool, noise, collect_frames: bool,
+                     stats: Optional[dict]):
+        """:meth:`_decode_batch` on ``device`` with its copy of the
+        weights."""
+        cfg = self.config
+        params, draft = self._replica(device)
+        with torch.no_grad():
+            x = torch.from_numpy(chunk).to(device)
+            feats = frontend.features_for_clips(x, self.total_spec_columns)
+            enc = encoder_forward(params, cfg, feats)
+            if self._use_spec(num_beams, top_k, top_p, constrained, int8_kv):
+                dparams, dcfg = draft
+                tokens = generate_speculative(
+                    params, cfg, dparams, dcfg, feats, max_length=max_length,
+                    spec_k=self.spec_k, enc_out=enc, stats=stats)
+            else:
+                tokens = generate(params, cfg, max_length=max_length,
+                                  num_beams=num_beams, top_k=top_k,
+                                  top_p=top_p, length_penalty=length_penalty,
+                                  constrained=constrained, int8_kv=int8_kv,
+                                  enc_out=enc, noise=noise)
+            if collect_frames:
+                return (tokens, *_frame_outputs(params, cfg, enc))
+            return tokens
 
     def _sampling_noise(self, seed: int, top_k: int, top_p: float):
         """Gumbel noise from one generator seeded with ``seed`` on the

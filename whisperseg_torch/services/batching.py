@@ -6,8 +6,8 @@ share a (frontend, decode-parameter) signature into fused device batches of
 up to ``max_batch_size`` windows, and hands each request its token lists back
 as soon as its own windows are decoded.
 
-``BatchingSegmenter`` is a drop-in ``Segmenter``: ``segment()`` keeps its
-semantics (slicing, parsing and consolidation run on the calling thread);
+``BatchingSegmenter`` is a drop-in ``Segmenter`` (``mesh=`` included):
+``segment()`` keeps its semantics (slicing, parsing and consolidation run on the calling thread);
 only the device-facing ``_generate_tokens`` goes through the shared batcher.
 A request that also needs the frame head's tracks (every default request on
 the shipped checkpoints, whose fitted frame post-processing is on) is not
@@ -54,12 +54,7 @@ class BatchingSegmenter(Segmenter):
     weights) until then."""
 
     def __init__(self, *args, max_batch_size: int = 32,
-                 max_wait_ms: float = 5.0, min_bucket: int = 4, mesh=None,
-                 **kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP.md Queue A item 13 "
-                "(multi-GPU)")
+                 max_wait_ms: float = 5.0, min_bucket: int = 4, **kwargs):
         super().__init__(*args, **kwargs)
         self.max_batch_size = max_batch_size
         self.max_wait_ms = max_wait_ms
@@ -75,6 +70,9 @@ class BatchingSegmenter(Segmenter):
 
     def _bucket(self, n: int) -> int:
         b = max(self.min_bucket, 1)
+        if self.mesh is not None:
+            # a batch split by rows must divide over the mesh's devices
+            b = max(b, self.mesh.size)
         while b < n:
             b *= 2
         return min(b, self.max_batch_size)

@@ -1,5 +1,5 @@
-"""The compact 1024-token segmentation vocabulary (the part decoding and
-training targets need).
+"""The compact 1024-token segmentation vocabulary: its id layout, the
+token strings (``ID_TO_TOKEN``) and the text encoder and decoder.
 
 A copy of the id layout of ``whisperseg_tpu/tokenizer.py``:
 
@@ -16,6 +16,7 @@ A copy of the id layout of ``whisperseg_tpu/tokenizer.py``:
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Sequence
 
 DIGIT_BASE = 0
@@ -37,6 +38,23 @@ SPECIES_LIST = ("zebra_finch", "bengalese_finch", "mouse", "marmoset",
                 "human", "unknown", "animal")
 SPECIES_TOKEN_IDS: Dict[str, int] = {
     name: SPECIES_BASE + i for i, name in enumerate(SPECIES_LIST)}
+
+_SPECIAL_RE = re.compile(r"<\|([^|]*)\|>")
+
+
+def _build_id_to_token() -> List[str]:
+    toks = [str(d) for d in range(10)]
+    toks += ["<|pad|>", "<|endoftext|>", "<|startoftranscript|>", "<|en|>",
+             "<|notimestamps|>"]
+    toks += [f"<|{name}|>" for name in SPECIES_LIST]
+    toks += ["<|reserved0|>"]
+    toks += [f"<|{i}|>" for i in range(NUM_TIMESTAMPS)]
+    assert len(toks) == VOCAB_SIZE
+    return toks
+
+
+ID_TO_TOKEN: List[str] = _build_id_to_token()
+TOKEN_TO_ID: Dict[str, int] = {t: i for i, t in enumerate(ID_TO_TOKEN)}
 
 
 def timestamp_id(col: int) -> int:
@@ -91,6 +109,50 @@ def is_timestamp(token_id: int) -> bool:
 
 def is_digit(token_id: int) -> bool:
     return 0 <= token_id < 10
+
+
+def encode_text(text: str) -> List[int]:
+    """A label or generated text -> ids (no prompt, no EOT added): a
+    concatenation of ``<|special|>`` markers and decimal digit runs, one id
+    per digit; whitespace is skipped, anything else raises."""
+    ids: List[int] = []
+
+    def digits(run: str):
+        for ch in run:
+            if ch.isdigit():
+                ids.append(ord(ch) - ord("0"))
+            elif not ch.isspace():
+                raise ValueError(f"cannot tokenize character {ch!r} in {text!r}")
+
+    pos = 0
+    for m in _SPECIAL_RE.finditer(text):
+        digits(text[pos:m.start()])
+        if m.group(0) not in TOKEN_TO_ID:
+            raise ValueError(f"unknown special token {m.group(0)!r}")
+        ids.append(TOKEN_TO_ID[m.group(0)])
+        pos = m.end()
+    digits(text[pos:])
+    return ids
+
+
+def decode_ids(ids: Sequence[int], skip_special_tokens: bool = False,
+               extra_tokens: Sequence[str] = ()) -> str:
+    """Ids -> text. ``extra_tokens`` are the surfaces of the extended ids
+    (>= VOCAB_SIZE, the multi-digit cluster pieces of an imported HF
+    checkpoint, models/convert_hf.py); other ids out of range are dropped."""
+    parts = []
+    for i in ids:
+        i = int(i)
+        if 0 <= i < VOCAB_SIZE:
+            token = ID_TO_TOKEN[i]
+        elif VOCAB_SIZE <= i < VOCAB_SIZE + len(extra_tokens):
+            token = extra_tokens[i - VOCAB_SIZE]
+        else:
+            continue
+        if skip_special_tokens and token.startswith("<|"):
+            continue
+        parts.append(token)
+    return "".join(parts)
 
 
 def extended_digits(token_id: int, extra_tokens: Sequence[str]) -> str:
