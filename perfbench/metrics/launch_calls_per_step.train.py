@@ -1,0 +1,14 @@
+"""launch_calls_per_step.train: the host's launch calls
+(``cudaLaunchKernel``, ``cuLaunchKernelEx`` and every other call with
+``LaunchKernel`` in its name, and graph launches, one each) that start
+inside the program's ``train.step`` spans in the traced window, per
+step."""
+
+from perfbench.spans import launch_calls_inside, records
+
+
+def read(view):
+    steps = records(view, "train.step")
+    if steps is None:
+        return None
+    return launch_calls_inside(view, steps) / len(steps)

@@ -21,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import codec
+from . import codec, profiling
 from .audio.frontend import Frontend
 from .audio.io import get_audio_duration, get_sampling_rate, load_audio
 from .constants import NUM_MEL_BINS, fft_time_delta
@@ -452,7 +452,8 @@ class DataLoader:
     before handing items to workers, so seeded epochs are the same for any
     ``num_workers``. Batches are bucketed by frontend configuration; the
     leftovers of the buckets form (possibly mixed) tail batches, and a short
-    batch comes last."""
+    batch comes last. The consumer's wait for each batch is the span
+    ``train.data_wait``."""
 
     def __init__(self, dataset: VocalSegDataset, batch_size: int,
                  shuffle: bool = True, drop_last: bool = True,
@@ -547,7 +548,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                batch = q.get()
+                with profiling.span("train.data_wait"):
+                    batch = q.get()
                 if batch is None:
                     return
                 if isinstance(batch, BaseException):

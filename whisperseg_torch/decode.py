@@ -5,6 +5,8 @@ The port of ``whisperseg_tpu/decode.py`` (``generate``, ``_generate_greedy``,
 ``generate_speculative``, ``_generate_beam``, the grammar and the samplers).
 JAX's ``lax.while_loop`` becomes a Python loop that exits early; its
 condition is read on the host once per step (per iteration, speculative).
+Each iteration, from that read to the end of its dispatch, is a
+``decode.step`` span (profiling.py).
 
 Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
 ``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
@@ -28,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import profiling
 from . import tokenizer as tok
 from .models.config import WhisperConfig
 from .models.whisper import (decoder_step, encoder_forward, init_cache,
@@ -197,14 +200,18 @@ def _generate_greedy(params, cfg, enc_out, max_length: int,
     finished = cur == tok.EOT_ID
     tokens[:, pl] = cur
     pos = pl
-    while pos + 1 < max_length and not bool(finished.all()):
-        logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
-                                      ck, cv, cross_seq_len=seq_len)
-        cur, mode, last_col = pick(logits[:, -1], mode, last_col)
-        cur = torch.where(finished, tok.PAD_ID, cur)
-        finished = finished | (cur == tok.EOT_ID)
-        tokens[:, pos + 1] = cur
-        pos += 1
+    while pos + 1 < max_length:
+        with profiling.span("decode.step") as step:
+            if bool(finished.all()):
+                step.drop()
+                break
+            logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None],
+                                          pos, ck, cv, cross_seq_len=seq_len)
+            cur, mode, last_col = pick(logits[:, -1], mode, last_col)
+            cur = torch.where(finished, tok.PAD_ID, cur)
+            finished = finished | (cur == tok.EOT_ID)
+            tokens[:, pos + 1] = cur
+            pos += 1
     return tokens
 
 
@@ -276,62 +283,70 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
     forwards = 0
 
     slot0 = pl
-    while slot0 + k + 1 <= max_slots and not bool(finished.all()):
-        # draft: k proposals, then one step that ingests the last of them
-        x_j, drafts = cur, []
-        for j in range(k + 1):
-            spec_prefix = (cols_s >= slot0) & (cols_s < slot0 + j)
-            dl, ck_d, cv_d = decoder_step(
-                draft_params, draft_cfg, xk_d, xv_d, x_j[:, None], slot0 + j,
-                ck_d, cv_d, cross_seq_len=s_d, truepos=tp - 1 + j,
-                slot_valid=slot_valid | spec_prefix[None])
-            x_j = torch.argmax(dl[:, -1].float(), dim=-1)
-            if j < k:
-                drafts.append(x_j)
-        drafts = torch.stack(drafts, dim=1)                        # [B, k]
+    while slot0 + k + 1 <= max_slots:
+        with profiling.span("decode.step") as step:
+            if bool(finished.all()):
+                step.drop()
+                break
+            # draft: k proposals, then one step that ingests the last of them
+            x_j, drafts = cur, []
+            for j in range(k + 1):
+                spec_prefix = (cols_s >= slot0) & (cols_s < slot0 + j)
+                dl, ck_d, cv_d = decoder_step(
+                    draft_params, draft_cfg, xk_d, xv_d, x_j[:, None],
+                    slot0 + j, ck_d, cv_d, cross_seq_len=s_d,
+                    truepos=tp - 1 + j,
+                    slot_valid=slot_valid | spec_prefix[None])
+                x_j = torch.argmax(dl[:, -1].float(), dim=-1)
+                if j < k:
+                    drafts.append(x_j)
+            drafts = torch.stack(drafts, dim=1)                    # [B, k]
 
-        # verify: one target forward over [cur, d_1 .. d_k]
-        chunk = torch.cat([cur[:, None], drafts], dim=1)           # [B, k+1]
-        tl, ck_t, cv_t = decoder_step(
-            params, cfg, xk_t, xv_t, chunk, slot0, ck_t, cv_t,
-            cross_seq_len=s_t, truepos=tp - 1, slot_valid=slot_valid)
-        forwards += 1
-        g = torch.argmax(tl.float(), dim=-1)                       # [B, k+1]
+            # verify: one target forward over [cur, d_1 .. d_k]
+            chunk = torch.cat([cur[:, None], drafts], dim=1)       # [B, k+1]
+            tl, ck_t, cv_t = decoder_step(
+                params, cfg, xk_t, xv_t, chunk, slot0, ck_t, cv_t,
+                cross_seq_len=s_t, truepos=tp - 1, slot_valid=slot_valid)
+            forwards += 1
+            g = torch.argmax(tl.float(), dim=-1)                   # [B, k+1]
 
-        # the longest matching prefix, then the target's own next token
-        accepted = torch.cumprod((drafts == g[:, :k]).long(), dim=1).sum(dim=1)
-        bonus = torch.gather(g, 1, accepted[:, None])[:, 0]
-        commit = torch.where(
-            cols_k[None] < accepted[:, None], torch.cat([drafts, pad], dim=1),
-            torch.where(cols_k[None] == accepted[:, None], bonus[:, None],
-                        tok.PAD_ID))                               # [B, k+1]
+            # the longest matching prefix, then the target's own next token
+            accepted = torch.cumprod((drafts == g[:, :k]).long(),
+                                     dim=1).sum(dim=1)
+            bonus = torch.gather(g, 1, accepted[:, None])[:, 0]
+            commit = torch.where(
+                cols_k[None] < accepted[:, None],
+                torch.cat([drafts, pad], dim=1),
+                torch.where(cols_k[None] == accepted[:, None], bonus[:, None],
+                            tok.PAD_ID))                           # [B, k+1]
 
-        # commits stop at (and include) the first EOT, and at the budget
-        is_eot = commit == tok.EOT_ID
-        any_eot = is_eot.any(dim=1)
-        first_eot = torch.argmax(is_eot.int(), dim=1)
-        count = torch.where(any_eot, first_eot + 1, accepted + 1)
-        count = torch.where(finished, 0, count)
-        count = torch.minimum(count, max_length - tp)
+            # commits stop at (and include) the first EOT, and at the budget
+            is_eot = commit == tok.EOT_ID
+            any_eot = is_eot.any(dim=1)
+            first_eot = torch.argmax(is_eot.int(), dim=1)
+            count = torch.where(any_eot, first_eot + 1, accepted + 1)
+            count = torch.where(finished, 0, count)
+            count = torch.minimum(count, max_length - tp)
 
-        # committed tokens at each row's true positions
-        rel = (cols_len[None] - tp[:, None]).clamp(0, k)
-        vals = torch.gather(commit, 1, rel)                        # [B, L]
-        write = (cols_len[None] >= tp[:, None]) & \
-            (cols_len[None] < (tp + count)[:, None])
-        tokens = torch.where(write, vals, tokens)
+            # committed tokens at each row's true positions
+            rel = (cols_len[None] - tp[:, None]).clamp(0, k)
+            vals = torch.gather(commit, 1, rel)                    # [B, L]
+            write = (cols_len[None] >= tp[:, None]) & \
+                (cols_len[None] < (tp + count)[:, None])
+            tokens = torch.where(write, vals, tokens)
 
-        # the slots of cur and of the committed drafts become history
-        n_drafts = torch.minimum(accepted, count)
-        slot_valid = slot_valid | ((cols_s[None] >= slot0)
-                                   & (cols_s[None] <= slot0 + n_drafts[:, None])
-                                   & ~finished[:, None])
-        committed = committed + count.sum()
-        row_forwards = row_forwards + (~finished).sum()
-        finished = finished | any_eot | (tp + count >= max_length)
-        cur = torch.where(finished, tok.PAD_ID, bonus)
-        tp = tp + count
-        slot0 += k + 1
+            # the slots of cur and of the committed drafts become history
+            n_drafts = torch.minimum(accepted, count)
+            slot_valid = slot_valid | (
+                (cols_s[None] >= slot0)
+                & (cols_s[None] <= slot0 + n_drafts[:, None])
+                & ~finished[:, None])
+            committed = committed + count.sum()
+            row_forwards = row_forwards + (~finished).sum()
+            finished = finished | any_eot | (tp + count >= max_length)
+            cur = torch.where(finished, tok.PAD_ID, bonus)
+            tp = tp + count
+            slot0 += k + 1
     if stats is not None:
         stats["verify_forwards"] = stats.get("verify_forwards", 0) + forwards
         stats["row_forwards"] = stats.get("row_forwards", 0) + row_forwards
@@ -425,35 +440,40 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
         worst_bank = bank_scores.amin(dim=1)
         return bool((best_live > worst_bank).any())
 
-    while pos + 1 < max_length and keep_going():
-        logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
-                                      ck, cv, cross_seq_len=seq_len)
-        logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
-        total = live_scores.reshape(-1, 1) + logp                  # [B*K, V]
-        c_scores, c_parent, c_tok = _beam_candidates(
-            total.reshape(batch, k * vocab), k, vocab)             # [B, 2K]
-        is_eot = c_tok == tok.EOT_ID
+    while pos + 1 < max_length:
+        with profiling.span("decode.step") as step:
+            if not keep_going():
+                step.drop()
+                break
+            logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None],
+                                          pos, ck, cv, cross_seq_len=seq_len)
+            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+            total = live_scores.reshape(-1, 1) + logp              # [B*K, V]
+            c_scores, c_parent, c_tok = _beam_candidates(
+                total.reshape(batch, k * vocab), k, vocab)         # [B, 2K]
+            is_eot = c_tok == tok.EOT_ID
 
-        # bank the EOT candidates at their length-penalised score
-        cand_len = torch.gather(lengths, 1, c_parent) + 1
-        cand_pen = c_scores / cand_len.to(f32) ** lp_pow
-        cand_tokens = tokens[_beam_rows(c_parent, batch, k)].reshape(
-            batch, 2 * k, max_length)
-        cand_tokens[:, :, pos + 1] = c_tok
-        bank_scores, bank_tokens = _bank_merge(
-            bank_scores, bank_tokens, torch.where(is_eot, cand_pen, NEG_INF),
-            cand_tokens)
+            # bank the EOT candidates at their length-penalised score
+            cand_len = torch.gather(lengths, 1, c_parent) + 1
+            cand_pen = c_scores / cand_len.to(f32) ** lp_pow
+            cand_tokens = tokens[_beam_rows(c_parent, batch, k)].reshape(
+                batch, 2 * k, max_length)
+            cand_tokens[:, :, pos + 1] = c_tok
+            bank_scores, bank_tokens = _bank_merge(
+                bank_scores, bank_tokens,
+                torch.where(is_eot, cand_pen, NEG_INF), cand_tokens)
 
-        # continue with the K best unfinished candidates
-        live_scores, lv_idx = _topk(torch.where(is_eot, NEG_INF, c_scores), k)
-        lv_parent = torch.gather(c_parent, 1, lv_idx)
-        rows = _beam_rows(lv_parent, batch, k)
-        tokens = tokens[rows]
-        ck, cv = ck[:, rows], cv[:, rows]
-        lengths = torch.gather(lengths, 1, lv_parent) + 1
-        cur = torch.gather(c_tok, 1, lv_idx).reshape(-1)
-        tokens[:, pos + 1] = cur
-        pos += 1
+            # continue with the K best unfinished candidates
+            live_scores, lv_idx = _topk(
+                torch.where(is_eot, NEG_INF, c_scores), k)
+            lv_parent = torch.gather(c_parent, 1, lv_idx)
+            rows = _beam_rows(lv_parent, batch, k)
+            tokens = tokens[rows]
+            ck, cv = ck[:, rows], cv[:, rows]
+            lengths = torch.gather(lengths, 1, lv_parent) + 1
+            cur = torch.gather(c_tok, 1, lv_idx).reshape(-1)
+            tokens[:, pos + 1] = cur
+            pos += 1
 
     # best of bank ∪ live (live covers budget exhaustion before K finish)
     live_pen = live_scores / lengths.to(f32) ** lp_pow

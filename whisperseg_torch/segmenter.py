@@ -47,7 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import codec
+from . import codec, profiling
 from .audio.frontend import Frontend
 from .checkpoint import cast_params, load_checkpoint
 from .consolidation import (consolidate_by_clustering, consolidate_by_voting,
@@ -343,11 +343,13 @@ class Segmenter:
 
     # --------------------------------------------------------------- generation
 
-    def _encode(self, chunk: np.ndarray, frontend: Frontend) -> torch.Tensor:
-        """Clips [B, clip_samples] -> log-mel features -> encoder states."""
-        x = torch.from_numpy(chunk).to(self.device)
-        feats = frontend.features_for_clips(x, self.total_spec_columns)
-        return encoder_forward(self.params, self.config, feats)
+    def _features(self, chunk: np.ndarray, device, frontend: Frontend,
+                  real: int) -> torch.Tensor:
+        """Clips [B, clip_samples] (the first ``real`` rows real, the rest
+        padding) -> log-mel features on ``device``."""
+        with profiling.span("segment.frontend", windows=real):
+            x = torch.from_numpy(chunk).to(device)
+            return frontend.features_for_clips(x, self.total_spec_columns)
 
     def _replica(self, device: torch.device):
         """(params, draft) on ``device``: a mesh's copies, made once for
@@ -370,21 +372,24 @@ class Segmenter:
                       max_length: int, num_beams: int, length_penalty: float,
                       int8_kv: bool = False, top_k: int = 1,
                       top_p: float = 1.0, constrained: bool = False,
-                      noise=None, collect_frames: bool = False):
-        """One device batch of clips [B, clip_samples]: frontend -> encoder ->
-        decode. Returns tokens [B, max_length] on the device, with
-        ``collect_frames=True`` also the frame head's (probs, cluster) from
-        the same encoder pass. On a mesh the rows are split over its data
-        devices, each part decoded on its own thread, and the results put
-        back together on ``self.device``."""
+                      noise=None, collect_frames: bool = False,
+                      real: Optional[int] = None):
+        """One device batch of clips [B, clip_samples], of which the first
+        ``real`` rows are real (all by default) and the rest padding:
+        frontend -> encoder -> decode. Returns tokens [B, max_length] on the
+        device, with ``collect_frames=True`` also the frame head's (probs,
+        cluster) from the same encoder pass. On a mesh the rows are split
+        over its data devices, each part decoded on its own thread, and the
+        results put back together on ``self.device``."""
         args = (frontend, max_length, num_beams, length_penalty, int8_kv,
                 top_k, top_p, constrained)
+        rows = chunk.shape[0]
+        real = rows if real is None else real
         if self.mesh is None:
             return self._decode_rows(chunk, self.device, *args, noise,
                                      collect_frames,
-                                     getattr(self, "spec_stats", None))
+                                     getattr(self, "spec_stats", None), real)
         devices = self._mesh_devices
-        rows = chunk.shape[0]
         if rows % len(devices):
             raise ValueError(f"a batch of {rows} rows does not divide over "
                              f"the mesh's {len(devices)} data devices")
@@ -394,13 +399,16 @@ class Segmenter:
         row_noise = None if noise is None else _RowNoise(noise, rows,
                                                          self.device)
         stats = [{} for _ in devices]
+        caller = profiling.current()
 
         def part(i):
-            return self._decode_rows(
-                chunk[i * per:(i + 1) * per], devices[i], *args,
-                None if row_noise is None else row_noise.part(
-                    i * per, (i + 1) * per),
-                collect_frames, stats[i])
+            with profiling.inherit(caller):
+                return self._decode_rows(
+                    chunk[i * per:(i + 1) * per], devices[i], *args,
+                    None if row_noise is None else row_noise.part(
+                        i * per, (i + 1) * per),
+                    collect_frames, stats[i],
+                    min(max(real - i * per, 0), per))
 
         with ThreadPoolExecutor(len(devices)) as pool:
             outs = list(pool.map(part, range(len(devices))))
@@ -418,28 +426,33 @@ class Segmenter:
                      max_length: int, num_beams: int, length_penalty: float,
                      int8_kv: bool, top_k: int, top_p: float,
                      constrained: bool, noise, collect_frames: bool,
-                     stats: Optional[dict]):
+                     stats: Optional[dict], real: int):
         """:meth:`_decode_batch` on ``device`` with its copy of the
         weights."""
         cfg = self.config
         params, draft = self._replica(device)
+        spec = self._use_spec(num_beams, top_k, top_p, constrained, int8_kv)
         with torch.no_grad():
-            x = torch.from_numpy(chunk).to(device)
-            feats = frontend.features_for_clips(x, self.total_spec_columns)
-            enc = encoder_forward(params, cfg, feats)
-            if self._use_spec(num_beams, top_k, top_p, constrained, int8_kv):
-                dparams, dcfg = draft
-                tokens = generate_speculative(
-                    params, cfg, dparams, dcfg, feats, max_length=max_length,
-                    spec_k=self.spec_k, enc_out=enc, stats=stats)
-            else:
-                tokens = generate(params, cfg, max_length=max_length,
-                                  num_beams=num_beams, top_k=top_k,
-                                  top_p=top_p, length_penalty=length_penalty,
-                                  constrained=constrained, int8_kv=int8_kv,
-                                  enc_out=enc, noise=noise)
+            feats = self._features(chunk, device, frontend, real)
+            with profiling.span("segment.encoder"):
+                enc = encoder_forward(params, cfg, feats)
+            with profiling.span("segment.decode"):
+                if spec:
+                    dparams, dcfg = draft
+                    tokens = generate_speculative(
+                        params, cfg, dparams, dcfg, feats,
+                        max_length=max_length, spec_k=self.spec_k,
+                        enc_out=enc, stats=stats)
+                else:
+                    tokens = generate(
+                        params, cfg, max_length=max_length,
+                        num_beams=num_beams, top_k=top_k, top_p=top_p,
+                        length_penalty=length_penalty,
+                        constrained=constrained, int8_kv=int8_kv,
+                        enc_out=enc, noise=noise)
             if collect_frames:
-                return (tokens, *_frame_outputs(params, cfg, enc))
+                with profiling.span("segment.frame_head"):
+                    return (tokens, *_frame_outputs(params, cfg, enc))
             return tokens
 
     def _sampling_noise(self, seed: int, top_k: int, top_p: float):
@@ -474,7 +487,7 @@ class Segmenter:
             result = self._decode_batch(
                 _pad_rows(chunk, batch_size), frontend, max_length, num_beams,
                 length_penalty, int8_kv, top_k, top_p, constrained, noise,
-                collect_frames)
+                collect_frames, real)
             if collect_frames:
                 tokens, probs, cl = result
                 probs_parts.append(probs[:real].cpu().numpy())
@@ -518,13 +531,33 @@ class Segmenter:
 
     # --------------------------------------------------------------- frame head
 
+    # The real rows of the batch that _frame_batch hands to _frame_fn, for
+    # segment.frontend's windows count. An attribute and not an argument of
+    # _frame_fn because the benchmark's recording subclass
+    # (perfbench/program.py) overrides _frame_fn as (chunk, frontend). A
+    # direct _frame_fn call counts every row as real.
+    _frame_real: Optional[int] = None
+
     @torch.no_grad()
     def _frame_fn(self, chunk: np.ndarray, frontend: Frontend):
         """One device batch of clips -> features -> encoder -> frame head,
         with no decoder: (probs [B, S, 3], cluster [B, S]) as numpy."""
-        probs, cl = _frame_outputs(self.params, self.config,
-                                   self._encode(chunk, frontend))
-        return probs.cpu().numpy(), cl.cpu().numpy()
+        real, self._frame_real = self._frame_real, None
+        feats = self._features(chunk, self.device, frontend,
+                               real or chunk.shape[0])
+        with profiling.span("segment.encoder"):
+            enc = encoder_forward(self.params, self.config, feats)
+        with profiling.span("segment.frame_head"):
+            probs, cl = _frame_outputs(self.params, self.config, enc)
+            return probs.cpu().numpy(), cl.cpu().numpy()
+
+    def _frame_batch(self, chunk: np.ndarray, batch_size: int,
+                     frontend: Frontend):
+        """:meth:`_frame_fn` on ``chunk`` padded to ``batch_size`` rows: the
+        real rows' (probs, cluster). The caller holds ``_frame_lock``."""
+        self._frame_real = chunk.shape[0]
+        p, c = self._frame_fn(_pad_rows(chunk, batch_size), frontend)
+        return p[:chunk.shape[0]], c[:chunk.shape[0]]
 
     def _require_frame_head(self):
         if "frame_head" not in self.params:
@@ -547,18 +580,26 @@ class Segmenter:
         if spec_time_step is None:
             spec_time_step = dsc.get("spec_time_step", 0.0025)
         audio = np.asarray(audio, dtype=np.float32)
+        probs, cl = self._window_frames(audio, sr, spec_time_step,
+                                        min_frequency, batch_size)
+        return _tracks_from_window_frames(probs, cl, len(audio) / sr,
+                                          spec_time_step)
+
+    def _window_frames(self, audio: np.ndarray, sr: int,
+                       spec_time_step: float, min_frequency: float,
+                       batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The frame head's (probs [N, S, 3], cluster [N, S]) on the N
+        trial-0 windows of ``audio`` (float32)."""
         clips, _meta = self.slice_audio_windows(audio, sr, spec_time_step, 1)
         frontend = Frontend(sr, spec_time_step, min_frequency)
         probs_parts, cl_parts = [], []
         with self._frame_lock:
             for pos in range(0, clips.shape[0], batch_size):
-                chunk = clips[pos:pos + batch_size]
-                p, c = self._frame_fn(_pad_rows(chunk, batch_size), frontend)
-                probs_parts.append(p[:chunk.shape[0]])
-                cl_parts.append(c[:chunk.shape[0]])
-        return _tracks_from_window_frames(
-            np.concatenate(probs_parts), np.concatenate(cl_parts),
-            len(audio) / sr if len(audio) else 0.0, spec_time_step)
+                p, c = self._frame_batch(clips[pos:pos + batch_size],
+                                         batch_size, frontend)
+                probs_parts.append(p)
+                cl_parts.append(c)
+        return np.concatenate(probs_parts), np.concatenate(cl_parts)
 
     def _frame_mode_defaults(self, vocal_threshold, cut_threshold,
                              boundary_snap, gap_cut):
@@ -602,14 +643,19 @@ class Segmenter:
             min_segment_length = spec_time_step * RATIO
         knobs = self._frame_mode_defaults(vocal_threshold, cut_threshold,
                                           boundary_snap, gap_cut)
-        tracks = self.frame_probs(audio, sr, spec_time_step=spec_time_step,
-                                  min_frequency=min_frequency,
-                                  batch_size=batch_size)
-        return segments_from_tracks(
-            tracks, len(np.asarray(audio)) / sr, fft_time_delta(sr),
-            self.inverse_cluster_codebook,
-            min_segment_length=min_segment_length,
-            precision_bits=self.precision_bits, **knobs)
+        with profiling.span("segment"):
+            self._require_frame_head()
+            audio = np.asarray(audio, dtype=np.float32)
+            probs, cl = self._window_frames(audio, sr, spec_time_step,
+                                            min_frequency, batch_size)
+            with profiling.span("segment.tail"):
+                tracks = _tracks_from_window_frames(
+                    probs, cl, len(audio) / sr, spec_time_step)
+                return segments_from_tracks(
+                    tracks, len(audio) / sr, fft_time_delta(sr),
+                    self.inverse_cluster_codebook,
+                    min_segment_length=min_segment_length,
+                    precision_bits=self.precision_bits, **knobs)
 
     # ---------------------------------------------------------------- streaming
 
@@ -631,10 +677,9 @@ class Segmenter:
             while len(pend) >= batch_size or (force and pend):
                 take = pend[:batch_size]
                 del pend[:batch_size]
-                p, c = self._frame_fn(_pad_rows(np.stack(take), batch_size),
-                                      frontend)
-                probs_parts.append(p[:len(take)])
-                cl_parts.append(c[:len(take)])
+                p, c = self._frame_batch(np.stack(take), batch_size, frontend)
+                probs_parts.append(p)
+                cl_parts.append(c)
 
         with self._frame_lock:
             carry = np.zeros(0, np.float32)
@@ -1011,48 +1056,51 @@ class Segmenter:
         if max_length is None:
             max_length = int(dsc.get("max_length", 448))
 
-        audio = np.asarray(audio, dtype=np.float32)
-        clips, meta = self.slice_audio_windows(audio, sr, spec_time_step,
-                                               num_trials)
-        # the frame post-processing takes its tracks from the decode's own
-        # encoder pass over the trial-0 windows; a speculative decode reads
-        # them in a second pass (frame_probs), as the JAX package does
-        need_frames = bool((frame_split or frame_refine_ms or frame_filter)
-                           and "frame_head" in self.params)
-        fuse_frames = need_frames and not self._use_spec(
-            num_beams, top_k, top_p, constrained, int8_kv)
-        frontend = Frontend(sr, spec_time_step, min_frequency)
-        gen = self._generate_tokens(clips, frontend, batch_size, max_length,
-                                    num_beams, length_penalty, status_monitor,
-                                    collect_frames=fuse_frames,
-                                    int8_kv=int8_kv, top_k=top_k, top_p=top_p,
-                                    seed=seed, constrained=constrained)
-        if fuse_frames:
-            token_lists, all_probs, all_cl = gen
-            n0 = sum(1 for m in meta if m[0] == 0)  # trial-0 window count
-            tracks = _tracks_from_window_frames(
-                all_probs[:n0], all_cl[:n0], len(audio) / sr, spec_time_step)
-        else:
-            token_lists = gen
+        with profiling.span("segment"):
+            audio = np.asarray(audio, dtype=np.float32)
+            clips, meta = self.slice_audio_windows(audio, sr, spec_time_step,
+                                                   num_trials)
+            # the frame post-processing takes its tracks from the decode's
+            # own encoder pass over the trial-0 windows; a speculative decode
+            # reads them in a second pass, as the JAX package does
+            need_frames = bool((frame_split or frame_refine_ms or frame_filter)
+                               and "frame_head" in self.params)
+            fuse_frames = need_frames and not self._use_spec(
+                num_beams, top_k, top_p, constrained, int8_kv)
+            frontend = Frontend(sr, spec_time_step, min_frequency)
+            gen = self._generate_tokens(
+                clips, frontend, batch_size, max_length, num_beams,
+                length_penalty, status_monitor, collect_frames=fuse_frames,
+                int8_kv=int8_kv, top_k=top_k, top_p=top_p, seed=seed,
+                constrained=constrained)
+            if fuse_frames:
+                token_lists, probs, cl = gen
+                n0 = sum(1 for m in meta if m[0] == 0)  # trial-0 windows
+                probs, cl = probs[:n0], cl[:n0]
+            else:
+                token_lists = gen
+                if need_frames:
+                    probs, cl = self._window_frames(
+                        audio, sr, spec_time_step, min_frequency, batch_size)
 
-        final = self._parse_generation(
-            token_lists, meta, min_segment_length, len(audio) / sr,
-            spec_time_step, num_trials, eps, time_per_frame_for_voting,
-            consolidation_method)
-        time_delta = fft_time_delta(sr)
-        final = _blur_correct_and_dedup(final, time_delta)
-        final = apply_postprocess(
-            final, audio, sr, merge_gap_ms=merge_gap_ms,
-            split_merged_db=split_merged_db,
-            refine_boundaries_ms=refine_boundaries_ms,
-            min_len_s=min_segment_length)
-        if need_frames:
-            if not fuse_frames:
-                tracks = self.frame_probs(
-                    audio, sr, spec_time_step=spec_time_step,
-                    min_frequency=min_frequency, batch_size=batch_size)
-            final = apply_frame_postprocess(
-                final, tracks, time_delta, frame_split=frame_split,
-                frame_refine_ms=frame_refine_ms, frame_filter=frame_filter,
-                min_len_s=min_segment_length)
-        return _round_and_rededup(final, self.precision_bits)
+            with profiling.span("segment.tail"):
+                final = self._parse_generation(
+                    token_lists, meta, min_segment_length, len(audio) / sr,
+                    spec_time_step, num_trials, eps,
+                    time_per_frame_for_voting, consolidation_method)
+                time_delta = fft_time_delta(sr)
+                final = _blur_correct_and_dedup(final, time_delta)
+                final = apply_postprocess(
+                    final, audio, sr, merge_gap_ms=merge_gap_ms,
+                    split_merged_db=split_merged_db,
+                    refine_boundaries_ms=refine_boundaries_ms,
+                    min_len_s=min_segment_length)
+                if need_frames:
+                    tracks = _tracks_from_window_frames(
+                        probs, cl, len(audio) / sr, spec_time_step)
+                    final = apply_frame_postprocess(
+                        final, tracks, time_delta, frame_split=frame_split,
+                        frame_refine_ms=frame_refine_ms,
+                        frame_filter=frame_filter,
+                        min_len_s=min_segment_length)
+                return _round_and_rededup(final, self.precision_bits)

@@ -175,7 +175,7 @@ class BatchingSegmenter(Segmenter):
                     _pad_rows(clips[pos:pos + real], batch), head.frontend,
                     head.max_length, head.num_beams, head.length_penalty,
                     head.int8_kv, head.top_k, head.top_p, head.constrained,
-                    noise)
+                    noise, real=real)
                 self.fused_batches += 1
                 tokens += out[:real].cpu().tolist()
                 pos += real

@@ -83,7 +83,7 @@ from ..parallel import mesh as pmesh
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, make_mesh,
                              param_pspecs)
 from ..parallel.multihost import free_port
-from ..profiling import StepTimer, trace
+from ..profiling import StepTimer, span, trace
 from ..runtime import resolve_device
 from ..segmenter import Segmenter
 from ..tokenizer import NUM_TIMESTAMPS, VOCAB_SIZE
@@ -550,17 +550,19 @@ def spec_augment(features: torch.Tensor, gen: torch.Generator,
 def batch_to_device(batch: Dict, device) -> Dict:
     """Collated numpy arrays -> tensors on ``device`` (ids and labels as
     int64, frame targets as float32 and int64 clusters)."""
-    out = {"input_features": batch["input_features"].to(device),
-           "decoder_input_ids": torch.from_numpy(batch["decoder_input_ids"]).to(
-               device, torch.long),
-           "labels": torch.from_numpy(batch["labels"]).to(device, torch.long)}
-    if "frame_targets" in batch:
-        ft = batch["frame_targets"]
-        out["frame_targets"] = {
-            k: torch.from_numpy(ft[k]).to(
-                device, torch.long if k == "cluster" else torch.float32)
-            for k in FRAME_KEYS}
-    return out
+    with span("train.to_device"):
+        out = {"input_features": batch["input_features"].to(device),
+               "decoder_input_ids": torch.from_numpy(
+                   batch["decoder_input_ids"]).to(device, torch.long),
+               "labels": torch.from_numpy(batch["labels"]).to(device,
+                                                               torch.long)}
+        if "frame_targets" in batch:
+            ft = batch["frame_targets"]
+            out["frame_targets"] = {
+                k: torch.from_numpy(ft[k]).to(
+                    device, torch.long if k == "cluster" else torch.float32)
+                for k in FRAME_KEYS}
+        return out
 
 
 def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0,
@@ -581,7 +583,8 @@ def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0
     loss (``fake_quantize_params``); the float32 master weights take the
     straight-through gradient. The loss comes back as a device scalar, so
     the host does not wait for the step; this step's gradients stay in each
-    leaf's ``.grad``."""
+    leaf's ``.grad``. The step is the span ``train.step``, its phases
+    ``train.forward``, ``train.backward`` and ``train.optimizer``."""
     if qat_bits not in (0, 4, 8):
         raise ValueError(f"qat_bits must be 0, 4 or 8, got {qat_bits}")
     train = cfg.dropout > 0
@@ -589,37 +592,44 @@ def build_train_step(cfg: WhisperConfig, optimizer, scheduler, qat_bits: int = 0
     allreduce = None if parallel is None else parallel.sum_data
     model_group = None if parallel is None else parallel.groups.model
 
-    def step(params, batch, gen: torch.Generator) -> torch.Tensor:
+    def forward(params, batch, gen):
         optimizer.zero_grad(set_to_none=True)
         features = batch["input_features"]
         if use_spec_augment:
             features = spec_augment(features, gen)
-        with pmesh.model_parallel(model_group):
-            p = params if parallel is None else parallel.gather(params)
-            if qat_bits:
-                p = (fake_quantize_params(p, qat_bits) if model_group is None
-                     else parallel.fake_quantize(p, qat_bits))
-            enc = encoder_forward(p, fcfg, features, train=train,
-                                  generator=gen)
-            logits = decoder_forward_train(p, fcfg, enc,
-                                           batch["decoder_input_ids"],
-                                           train=train, generator=gen)
-            loss = cross_entropy_loss(logits, batch["labels"],
-                                      timestamp_weight=timestamp_loss_weight,
-                                      timestamp_sigma=timestamp_label_sigma,
-                                      allreduce=allreduce)
-            if frame_head_weight > 0 and "frame_targets" in batch:
-                floss = frame_head_loss(frame_head_forward(p, fcfg, enc),
-                                        batch["frame_targets"],
-                                        boundary_weight=frame_boundary_weight,
-                                        allreduce=allreduce)
-                loss = loss + frame_head_weight * floss
-            loss.backward()
-        if parallel is not None:
-            parallel.reduce_grads(params)
-        optimizer.step()
-        scheduler.step()
-        return loss.detach()
+        p = params if parallel is None else parallel.gather(params)
+        if qat_bits:
+            p = (fake_quantize_params(p, qat_bits) if model_group is None
+                 else parallel.fake_quantize(p, qat_bits))
+        enc = encoder_forward(p, fcfg, features, train=train, generator=gen)
+        logits = decoder_forward_train(p, fcfg, enc,
+                                       batch["decoder_input_ids"],
+                                       train=train, generator=gen)
+        loss = cross_entropy_loss(logits, batch["labels"],
+                                  timestamp_weight=timestamp_loss_weight,
+                                  timestamp_sigma=timestamp_label_sigma,
+                                  allreduce=allreduce)
+        if frame_head_weight > 0 and "frame_targets" in batch:
+            floss = frame_head_loss(frame_head_forward(p, fcfg, enc),
+                                    batch["frame_targets"],
+                                    boundary_weight=frame_boundary_weight,
+                                    allreduce=allreduce)
+            loss = loss + frame_head_weight * floss
+        return loss
+
+    def step(params, batch, gen: torch.Generator) -> torch.Tensor:
+        with span("train.step"):
+            with span("train.forward"), pmesh.model_parallel(model_group):
+                loss = forward(params, batch, gen)
+            with span("train.backward"):
+                with pmesh.model_parallel(model_group):
+                    loss.backward()
+                if parallel is not None:
+                    parallel.reduce_grads(params)
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            return loss.detach()
 
     return step
 
