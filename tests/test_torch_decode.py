@@ -2,7 +2,13 @@
 ``generate`` on the shipped tiny checkpoint: identical at float32; at bf16,
 as shipped, greedy identical and beam picks of equal score; in the quantized
 modes (int8, int4, int8 cross K/V) greedy identical to the JAX package on its
-TPU kernel path, and teacher-forced logits within a stated distance."""
+TPU kernel path, and teacher-forced logits within a stated distance. Then
+what the beam step's CUDA graph rests on: ``decoder_step`` at a device-side
+position equal to the int path, and the rule that decides where a graph is
+used (tests/test_torch_beam_graph.py holds the graph itself)."""
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,14 +17,16 @@ import pytest
 import torch
 
 from jax_kernel_path import jax_kernel_path
+from test_torch_beam_graph import one_thread  # noqa: F401 (a fixture)
 from whisperseg_tpu.audio.frontend import Frontend as JaxFrontend
 from whisperseg_tpu.checkpoint import load_checkpoint as jax_load
 from whisperseg_tpu.decode import generate as jax_generate
 from whisperseg_tpu.models import whisper as jw
 from whisperseg_tpu.ops import quant as jq
+from whisperseg_torch import decode
 from whisperseg_torch import tokenizer as tok
 from whisperseg_torch.checkpoint import cast_params, load_checkpoint
-from whisperseg_torch.decode import _topk, generate
+from whisperseg_torch.decode import _topk, generate, generate_speculative
 from whisperseg_torch.models import whisper as tw
 from whisperseg_torch.ops.quant import quantize_params
 from whisperseg_torch.synthetic import tone_bursts
@@ -251,3 +259,87 @@ def test_out_of_slice_options_raise(setup):
         assert generate(params, cfg, f, max_length=10, **kw).shape == (1, 10)
     # int8 cross K/V is in the slice now
     assert generate(params, cfg, f, max_length=10, int8_kv=True).shape == (1, 10)
+
+
+# ------------------------------------------------- the beam step's CUDA graph
+
+
+def _as(setup, dtype):
+    """The float32 tiny checkpoint run at ``dtype`` (weights cast too)."""
+    params, cfg = setup[2], setup[3]
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    if dtype == "bfloat16":
+        params = cast_params(params, torch.bfloat16)
+    return params, cfg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("at", ["first", "middle", "last"])
+@pytest.mark.parametrize("route", ["plain", "int8", "int8_kv"])
+def test_decoder_step_at_a_device_position_equals_the_int_path(
+        setup, one_thread, dtype, at, route):
+    """A single-token step with ``pos0`` a 0-dim long tensor: logits and
+    both caches bit for bit those of the int position, over a cache whose
+    history is random, at the first step, one in the middle and the
+    cache's last slot; with plain weights, int8 weights, and int8 weights
+    with int8 cross K/V (the route of the benchmark's token control)."""
+    params, cfg = _as(setup, dtype)
+    if route != "plain":
+        params = quantize_params(params, bits=8)
+    gen = torch.Generator().manual_seed(3)
+    enc = torch.randn(2, 50, cfg.d_model, generator=gen)
+    xk, xv = tw.precompute_cross_kv(params, cfg, enc,
+                                    int8_kv=route == "int8_kv")
+    max_len = 12
+    ck, cv = tw.init_cache(cfg, 2, max_len, "cpu")
+    ck.normal_(generator=gen)
+    cv.normal_(generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+    pos = {"first": len(tok.PROMPT_IDS), "middle": 7, "last": max_len - 1}[at]
+    step = functools.partial(tw.decoder_step, params, cfg, xk, xv, ids,
+                             cross_seq_len=50)
+    a, b = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
+    want = step(pos, *a)[0]
+    got = step(torch.tensor(pos), *b)[0]
+    assert torch.equal(got, want)
+    assert torch.equal(b[0], a[0]) and torch.equal(b[1], a[1])
+    assert not torch.equal(a[0][:, :, pos], ck[:, :, pos])  # the step wrote
+
+
+@pytest.fixture(scope="module")
+def weight_kinds(setup):
+    params = setup[2]
+    return {"plain": params, "int8": quantize_params(params, bits=8),
+            "int4": quantize_params(params, bits=4)}
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("kind", ["plain", "int8", "int4"])
+@pytest.mark.parametrize("int8_kv", [False, True])
+def test_graph_engages_on_the_card_with_plain_weights_and_float_kv(
+        weight_kinds, device, kind, int8_kv):
+    """Decided by what the input shows alone (no card needed to ask)."""
+    want = device == "cuda" and kind == "plain" and not int8_kv
+    assert decode.graph_engages(weight_kinds[kind], torch.device(device),
+                                int8_kv) is want
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy", "sampling",
+                                  "speculative"])
+def test_only_beam_search_asks_for_a_graph(setup, monkeypatch, one_thread,
+                                          mode):
+    """Greedy search, sampling and speculative decoding keep their eager
+    loops: they never consult the rule."""
+    params, cfg, feats = setup[2], setup[3], torch.from_numpy(setup[4][:1])
+    asked = []
+    monkeypatch.setattr(decode, "graph_engages",
+                        lambda *args: asked.append(args) and False)
+    if mode == "speculative":
+        out = generate_speculative(params, cfg, params, cfg, feats,
+                                   max_length=12, spec_k=2)
+    else:
+        out = generate(params, cfg, feats, max_length=12,
+                       num_beams=4 if mode == "beam" else 1,
+                       top_k=3 if mode == "sampling" else 1)
+    assert out.shape == (1, 12)
+    assert len(asked) == (mode == "beam")

@@ -8,6 +8,13 @@ condition is read on the host once per step (per iteration, speculative).
 Each iteration, from that read to the end of its dispatch, is a
 ``decode.step`` span (profiling.py).
 
+Beam search's step runs at a position held on the device, so that nothing
+it launches depends on the step. Where :func:`graph_engages` (a CUDA
+device, plain weights, float cross K/V) the step is captured once as a CUDA
+graph over static buffers, per device, weights and shape, and each later
+step is one replay; its ``decode.step`` span counts ``graphed=1``. The
+tokens are those of the eager loop.
+
 Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
 ``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
 standard Gumbel noise, drawn once per step from a ``noise`` callable (by
@@ -26,15 +33,19 @@ the lower index, as ``lax.top_k`` does (``torch.topk`` promises no order).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from . import profiling
 from . import tokenizer as tok
 from .models.config import WhisperConfig
-from .models.whisper import (decoder_step, encoder_forward, init_cache,
-                             precompute_cross_kv)
+from .models.whisper import (compute_dtype, decoder_step, encoder_forward,
+                             init_cache, precompute_cross_kv)
+from .ops.quant import Quant4Tensor, QuantTensor
 
 NEG_INF = -1e30
 
@@ -388,21 +399,244 @@ def _bank_merge(bank_scores, bank_tokens, cand_scores, cand_tokens):
     return new_scores, all_tokens[rows, idx]
 
 
+def _keep_going(live_scores, lengths, bank_scores, lp_pow: float):
+    """A 0-dim bool tensor: whether some sequence may still improve. A
+    sequence is done when no live beam's length-normalised score can still
+    beat its worst banked hypothesis (HF's early_stopping=False heuristic;
+    empty bank slots sit at NEG_INF)."""
+    best_live = (live_scores / lengths.to(torch.float32) ** lp_pow).amax(dim=1)
+    worst_bank = bank_scores.amin(dim=1)
+    return (best_live > worst_bank).any()
+
+
+def _beam_step(params, cfg, xk, xv, seq_len: int, k: int, lp_pow: float,
+               s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One beam-search step from the state ``s`` (``_generate_beam``) at
+    its device-side position ``s["pos"]``: the next state. It writes the
+    step's K/V into ``s["ck"]`` / ``s["cv"]`` and changes nothing else of
+    ``s``, and no shape, launch or host read depends on the position or the
+    data, so a CUDA graph can capture it."""
+    tokens, pos = s["tokens"], s["pos"]
+    rows, max_length = tokens.shape
+    batch, vocab = rows // k, cfg.vocab_size
+    nxt = pos + 1
+    at = nxt.reshape(1)     # the column this step's tokens take
+    logits, ck, cv = decoder_step(params, cfg, xk, xv, s["cur"][:, None], pos,
+                                  s["ck"], s["cv"], cross_seq_len=seq_len)
+    logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    total = s["live_scores"].reshape(-1, 1) + logp                 # [B*K, V]
+    c_scores, c_parent, c_tok = _beam_candidates(
+        total.reshape(batch, k * vocab), k, vocab)                 # [B, 2K]
+    is_eot = c_tok == tok.EOT_ID
+
+    # bank the EOT candidates at their length-penalised score
+    cand_len = torch.gather(s["lengths"], 1, c_parent) + 1
+    cand_pen = c_scores / cand_len.to(torch.float32) ** lp_pow
+    cand_tokens = tokens[_beam_rows(c_parent, batch, k)].reshape(
+        batch, 2 * k, max_length)
+    cand_tokens.index_copy_(2, at, c_tok[:, :, None])
+    bank_scores, bank_tokens = _bank_merge(
+        s["bank_scores"], s["bank_tokens"],
+        torch.where(is_eot, cand_pen, NEG_INF), cand_tokens)
+
+    # continue with the K best unfinished candidates
+    live_scores, lv_idx = _topk(torch.where(is_eot, NEG_INF, c_scores), k)
+    lv_parent = torch.gather(c_parent, 1, lv_idx)
+    beams = _beam_rows(lv_parent, batch, k)
+    tokens = tokens[beams]
+    lengths = torch.gather(s["lengths"], 1, lv_parent) + 1
+    cur = torch.gather(c_tok, 1, lv_idx).reshape(-1)
+    tokens.index_copy_(1, at, cur[:, None])
+    return {"tokens": tokens, "bank_scores": bank_scores,
+            "bank_tokens": bank_tokens, "live_scores": live_scores,
+            "lengths": lengths, "cur": cur, "ck": ck[:, beams],
+            "cv": cv[:, beams], "pos": nxt,
+            "go": _keep_going(live_scores, lengths, bank_scores, lp_pow)}
+
+
+def _decoder_leaves(params) -> list:
+    dec = params["decoder"]
+    return ([v for name, v in dec.items() if name != "layers"]
+            + list(dec["layers"].values()))
+
+
+def graph_engages(params, device, int8_kv: bool) -> bool:
+    """Whether a beam search replays its steps from a CUDA graph: on a CUDA
+    device, with plain (unquantized) decoder weights and float cross K/V.
+    The quantized weights' kernels and the int8 cross-attention run
+    eagerly; so do greedy search, sampling and speculative decoding, which
+    never ask."""
+    return (torch.device(device).type == "cuda" and not int8_kv
+            and not any(isinstance(w, (QuantTensor, Quant4Tensor))
+                        for w in _decoder_leaves(params)))
+
+
+def _capture(body: Callable[[], None], device) -> Callable[[], None]:
+    """Run ``body`` once on a side stream, the warm-up CUDA graph capture
+    asks for (it computes a real step), then capture it as a CUDA graph on
+    that stream; returns the graph's replay. Captures are taken one at a
+    time, each checked on its own thread only, since the mesh path decodes
+    on one thread a device."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            body()
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=stream,
+                                             capture_error_mode="thread_local"):
+            body()
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def replay():
+        with torch.cuda.device(device):
+            graph.replay()
+    return replay
+
+
+class _BeamGraph:
+    """One beam-search shape on one device: static buffers for the cross K/V,
+    the self-attention cache and the search's state, and the CUDA graph of
+    one step over them, captured at the first step run and replayed after.
+    ``lock`` is held by the search that uses the buffers."""
+
+    def __init__(self, cfg: WhisperConfig, device, rows: int, max_length: int,
+                 seq_len: int):
+        shape = (cfg.decoder_layers, rows, seq_len, cfg.kv_heads, cfg.head_dim)
+        self.device = device
+        self.nbytes = _static_bytes(cfg, rows, max_length, seq_len)
+        self.xk = torch.empty(shape, dtype=compute_dtype(cfg), device=device)
+        self.xv = torch.empty_like(self.xk)
+        self.ck, self.cv = init_cache(cfg, rows, max_length, device)
+        self.state: Optional[Dict[str, torch.Tensor]] = None
+        self.replay: Optional[Callable[[], None]] = None
+        self.lock = threading.Lock()
+        self.refs: list = []
+
+    def load(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The state after the seed step copied into the static buffers
+        (the caches are the static ones already); returns those."""
+        if self.state is None:
+            self.state = {n: t if t is self.ck or t is self.cv
+                          else torch.empty_like(t) for n, t in state.items()}
+        for n, t in state.items():
+            if t is not self.state[n]:
+                self.state[n].copy_(t)
+        return self.state
+
+    def step(self, fn: Callable[[Dict], Dict]) -> None:
+        """One step ``fn`` over the static state: the graph's replay, or
+        its capture, whose warm-up runs the step."""
+        if self.replay is not None:
+            self.replay()
+            return
+
+        def body():
+            for n, t in fn(self.state).items():
+                self.state[n].copy_(t)
+        self.replay = _capture(body, self.device)
+
+
+def _static_bytes(cfg: WhisperConfig, rows: int, max_length: int,
+                  seq_len: int) -> int:
+    """The bytes of a graph's cross K/V and self-attention cache."""
+    per_pos = (cfg.decoder_layers * rows * cfg.kv_heads * cfg.head_dim
+               * torch.empty((), dtype=compute_dtype(cfg)).element_size())
+    return 2 * per_pos * (seq_len + max_length)
+
+
+def _device_memory(device) -> int:
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+# The beam graphs by device, weights and shape. A graph keeps its static
+# buffers between calls: each device keeps its most recently used graphs
+# while their cross K/V and caches fit in _GRAPH_SHARE of its memory, and a
+# shape that alone does not fit runs eagerly. A graph is also dropped when
+# one of the weights it reads is freed.
+_GRAPHS: "OrderedDict[tuple, _BeamGraph]" = OrderedDict()
+_GRAPHS_LOCK = threading.RLock()
+_GRAPH_SHARE = 0.25
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _forget(key: tuple) -> None:
+    with _GRAPHS_LOCK:
+        _GRAPHS.pop(key, None)
+
+
+def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
+                max_length: int, seq_len: int,
+                lp_pow: float) -> Optional[_BeamGraph]:
+    """The graph of this shape for these weights (by identity and address)
+    on ``device``, made on first use; None where the shape's buffers alone
+    exceed the device's share."""
+    device = torch.device(device)
+    leaves = _decoder_leaves(params)
+    key = (device, tuple((id(w), w.data_ptr()) for w in leaves),
+           cfg.decoder_layers, cfg.num_heads, cfg.kv_heads, cfg.vocab_size,
+           cfg.compute_dtype, batch, k, max_length, seq_len, lp_pow)
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is not None:
+            _GRAPHS.move_to_end(key)
+            return graph
+        need = _static_bytes(cfg, batch * k, max_length, seq_len)
+        budget = _GRAPH_SHARE * _device_memory(device)
+        if need > budget:
+            return None
+        held = [(n, g) for n, g in _GRAPHS.items() if g.device == device]
+        used = sum(g.nbytes for _, g in held)
+        for n, g in held:       # least recently used first
+            if used + need <= budget:
+                break
+            del _GRAPHS[n]
+            used -= g.nbytes
+        graph = _BeamGraph(cfg, device, batch * k, max_length, seq_len)
+        graph.refs = [weakref.ref(w, lambda _ref, key=key: _forget(key))
+                      for w in leaves]
+        _GRAPHS[key] = graph
+    return graph
+
+
 def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
                    length_penalty: float, int8_kv: bool = False) -> torch.Tensor:
+    """Beam search; its steps replay a CUDA graph where
+    :func:`graph_engages`, with the same tokens."""
+    device = enc_out.device
+    graph = None
+    if graph_engages(params, device, int8_kv):
+        graph = _beam_graph(params, cfg, device, enc_out.shape[0], num_beams,
+                            max_length, enc_out.shape[1],
+                            float(length_penalty))
+    if graph is None:
+        return _beam_search(params, cfg, enc_out, max_length, num_beams,
+                            float(length_penalty), int8_kv, None)
+    with graph.lock:
+        tokens = _beam_search(params, cfg, enc_out, max_length, num_beams,
+                              float(length_penalty), int8_kv, graph)
+        if device.type == "cuda":   # the buffers are read before the next use
+            torch.cuda.current_stream(device).synchronize()
+    return tokens
+
+
+def _beam_search(params, cfg, enc_out, max_length: int, k: int,
+                 lp_pow: float, int8_kv: bool,
+                 graph: Optional[_BeamGraph]) -> torch.Tensor:
     batch, device = enc_out.shape[0], enc_out.device
     seq_len = enc_out.shape[1]
-    k = num_beams
     vocab = cfg.vocab_size
-    lp_pow = float(length_penalty)
     f32 = torch.float32
 
     # encoder state expanded to B*K rows, beam-major within each batch item;
     # beams reorder the self-attention cache only, never the cross K/V
-    xk, xv = precompute_cross_kv(params, cfg,
-                                 enc_out.repeat_interleave(k, dim=0),
-                                 int8_kv=int8_kv)
-    ck, cv = init_cache(cfg, batch * k, max_length, device)
+    xk, xv = precompute_cross_kv(
+        params, cfg, enc_out.repeat_interleave(k, dim=0), int8_kv=int8_kv,
+        out=None if graph is None else (graph.xk, graph.xv))
+    if graph is None:
+        ck, cv = init_cache(cfg, batch * k, max_length, device)
+    else:
+        ck, cv = graph.ck.zero_(), graph.cv.zero_()
     prompt = _prompt(batch * k, device)
     pl = prompt.shape[1]
     tokens = torch.full((batch * k, max_length), tok.PAD_ID, dtype=torch.long,
@@ -430,55 +664,32 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
     cur = torch.gather(c_tok, 1, lv_idx).reshape(-1)
     tokens[:, pl] = cur
     lengths = torch.ones((batch, k), dtype=torch.long, device=device)
-    pos = pl
+    s = {"tokens": tokens, "bank_scores": bank_scores,
+         "bank_tokens": bank_tokens, "live_scores": live_scores,
+         "lengths": lengths, "cur": cur, "ck": ck, "cv": cv,
+         "pos": torch.full((), pl, dtype=torch.long, device=device),
+         "go": _keep_going(live_scores, lengths, bank_scores, lp_pow)}
+    if graph is not None:
+        s = graph.load(s)
 
-    def keep_going() -> bool:
-        # a sequence is done when no live beam's length-normalised score can
-        # still beat its worst banked hypothesis (HF's early_stopping=False
-        # heuristic; empty bank slots sit at NEG_INF)
-        best_live = (live_scores / lengths.to(f32) ** lp_pow).amax(dim=1)
-        worst_bank = bank_scores.amin(dim=1)
-        return bool((best_live > worst_bank).any())
+    def step(state):
+        return _beam_step(params, cfg, xk, xv, seq_len, k, lp_pow, state)
 
-    while pos + 1 < max_length:
-        with profiling.span("decode.step") as step:
-            if not keep_going():
-                step.drop()
+    for _ in range(pl, max_length - 1):     # the step at each position
+        graphed = graph is not None and graph.replay is not None
+        with profiling.span("decode.step", graphed=int(graphed)) as span:
+            if not bool(s["go"]):
+                span.drop()
                 break
-            logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None],
-                                          pos, ck, cv, cross_seq_len=seq_len)
-            logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
-            total = live_scores.reshape(-1, 1) + logp              # [B*K, V]
-            c_scores, c_parent, c_tok = _beam_candidates(
-                total.reshape(batch, k * vocab), k, vocab)         # [B, 2K]
-            is_eot = c_tok == tok.EOT_ID
-
-            # bank the EOT candidates at their length-penalised score
-            cand_len = torch.gather(lengths, 1, c_parent) + 1
-            cand_pen = c_scores / cand_len.to(f32) ** lp_pow
-            cand_tokens = tokens[_beam_rows(c_parent, batch, k)].reshape(
-                batch, 2 * k, max_length)
-            cand_tokens[:, :, pos + 1] = c_tok
-            bank_scores, bank_tokens = _bank_merge(
-                bank_scores, bank_tokens,
-                torch.where(is_eot, cand_pen, NEG_INF), cand_tokens)
-
-            # continue with the K best unfinished candidates
-            live_scores, lv_idx = _topk(
-                torch.where(is_eot, NEG_INF, c_scores), k)
-            lv_parent = torch.gather(c_parent, 1, lv_idx)
-            rows = _beam_rows(lv_parent, batch, k)
-            tokens = tokens[rows]
-            ck, cv = ck[:, rows], cv[:, rows]
-            lengths = torch.gather(lengths, 1, lv_parent) + 1
-            cur = torch.gather(c_tok, 1, lv_idx).reshape(-1)
-            tokens[:, pos + 1] = cur
-            pos += 1
+            if graph is None:
+                s = step(s)
+            else:
+                graph.step(step)
 
     # best of bank ∪ live (live covers budget exhaustion before K finish)
-    live_pen = live_scores / lengths.to(f32) ** lp_pow
-    all_scores = torch.cat([bank_scores, live_pen], dim=1)
-    all_tokens = torch.cat([bank_tokens, tokens.reshape(batch, k, max_length)],
-                           dim=1)
+    live_pen = s["live_scores"] / s["lengths"].to(f32) ** lp_pow
+    all_scores = torch.cat([s["bank_scores"], live_pen], dim=1)
+    all_tokens = torch.cat([s["bank_tokens"],
+                            s["tokens"].reshape(batch, k, max_length)], dim=1)
     best = torch.argmax(all_scores, dim=1)
     return all_tokens[torch.arange(batch, device=device), best]

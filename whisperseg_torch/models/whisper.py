@@ -211,9 +211,16 @@ def _split_heads(x, num_heads):
     return x.reshape(b, l, num_heads, d // num_heads)
 
 
-def _attention(q, k, v, cdt, mask=None):
+def _neg(cdt, device) -> torch.Tensor:
+    """The masked score, -1e30 in ``cdt`` on ``device``, made by a caller of
+    :func:`_attention` (``decoder_step`` once for all its layers)."""
+    return torch.full((), -1e30, dtype=cdt, device=device)
+
+
+def _attention(q, k, v, cdt, mask=None, neg=None):
     """q [B, Lq, H, hd]; k, v [B, Lk, Hkv, hd] (GQA when Hkv < H); mask
-    broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*hd] float32.
+    broadcastable to [B, H, Lq, Lk] -> [B, Lq, H*hd] float32. With a mask
+    comes ``neg`` (:func:`_neg`), the score the masked keys take.
 
     As in the JAX package the scores are produced in bf16 under bf16 compute
     (float32 otherwise) and the softmax runs in float32. The probability-value
@@ -223,7 +230,6 @@ def _attention(q, k, v, cdt, mask=None):
     h, hk = q.shape[2], k.shape[2]
     qs = (q * hd ** -0.5).to(cdt)
     k, v = k.to(cdt), v.to(cdt)
-    neg = torch.tensor(-1e30, dtype=cdt, device=q.device)
     if h != hk:
         b, lq = q.shape[:2]
         q5 = qs.reshape(b, lq, hk, h // hk, hd)
@@ -441,20 +447,27 @@ def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
 
 
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
-                        enc_out: torch.Tensor, int8_kv: bool = False):
+                        enc_out: torch.Tensor, int8_kv: bool = False,
+                        out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Cross-attention K/V of every decoder layer: ([Ld, B, S, Hkv, hd],
     same) in the compute dtype. With ``int8_kv`` each becomes a pair (int8
     values [Ld, B, S, Hkv*hd], bf16 scales [Ld, B, S, Hkv]), quantized from
-    the compute-dtype K/V (ops/cross_attention.py)."""
+    the compute-dtype K/V (ops/cross_attention.py). Each layer's K/V is
+    written into ``out``, a pair of tensors of the float shape (not with
+    ``int8_kv``), or else into a pair made here."""
     layers = params["decoder"]["layers"]
     cdt = compute_dtype(cfg)
-    ks, vs = [], []
+    if out is None:
+        shape = (cfg.decoder_layers, *enc_out.shape[:2], cfg.kv_heads,
+                 cfg.head_dim)
+        out = (torch.empty(shape, dtype=cdt, device=enc_out.device),
+               torch.empty(shape, dtype=cdt, device=enc_out.device))
+    k, v = out
     for i in range(cfg.decoder_layers):
         lp = _layer(layers, i)
-        ks.append(_split_heads(_dot(enc_out, lp["xk_w"], cdt), cfg.kv_heads).to(cdt))
-        vs.append(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
-                               cfg.kv_heads).to(cdt))
-    k, v = torch.stack(ks), torch.stack(vs)
+        k[i].copy_(_split_heads(_dot(enc_out, lp["xk_w"], cdt), cfg.kv_heads))
+        v[i].copy_(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
+                                cfg.kv_heads))
     if not int8_kv:
         return k, v
     kq, k_scale, vq, v_scale, _ = quantize_kv_for_kernel(k, v)
@@ -471,7 +484,7 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, device
 
 
 def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
-                 input_ids: torch.Tensor, pos0: int, cache_k, cache_v,
+                 input_ids: torch.Tensor, pos0, cache_k, cache_v,
                  cross_seq_len: int = 0,
                  truepos: Optional[torch.Tensor] = None,
                  slot_valid: Optional[torch.Tensor] = None):
@@ -495,6 +508,12 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     over the first ``pos0 + Lc`` slots only (the JAX package attends over
     all ``max_len`` of them, the masked ones weighing exactly 0).
 
+    Outside slot mode ``pos0`` may also be a 0-dim long tensor on the
+    device: the cache write becomes ``index_copy_``, the position embedding
+    ``index_select``, and no shape or launch depends on the position, so a
+    CUDA graph can capture the step (decode.py's beam search). The values
+    are those of the int.
+
     Returns (logits [B, Lc, vocab] float32, cache_k, cache_v). Unlike the
     JAX version the caches are updated in place (and returned for symmetry)."""
     dec = params["decoder"]
@@ -503,12 +522,17 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     lc = input_ids.shape[1]
     device = input_ids.device
     qi = torch.arange(lc, device=device)[None, None, :, None]
+    at = None   # the chunk's cache positions, for a device-side pos0
 
     # The JAX source adds the two embeddings in the parameters' dtype and
     # widens the sum; under jit XLA drops that bf16 round trip (excess
     # precision), so the compiled program adds in float32, as here.
     if truepos is None:
-        pos_emb = dec["pos_emb"][pos0:pos0 + lc][None]
+        if isinstance(pos0, torch.Tensor):
+            at = pos0 + torch.arange(lc, device=device)
+            pos_emb = dec["pos_emb"].index_select(0, at)[None]
+        else:
+            pos_emb = dec["pos_emb"][pos0:pos0 + lc][None]
         keys = cache_k.shape[2]
         key_pos = torch.arange(keys, device=device)[None, None, None, :]
         self_mask = key_pos <= pos0 + qi                       # [1, 1, Lc, K]
@@ -521,6 +545,7 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         hist = slot_valid[:, None, None, :keys] & (key_pos < pos0)
         self_mask = hist | in_chunk                            # [B, 1, Lc, K]
     x = dec["tok_emb"][input_ids].float() + pos_emb.float()
+    neg = _neg(cdt, device)
 
     for i in range(cfg.decoder_layers):
         lp = _layer(dec["layers"], i)
@@ -528,10 +553,14 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         q = _split_heads(_dot(h, lp["q_w"], cdt) + lp["q_b"], heads)
         k = _split_heads(_dot(h, lp["k_w"], cdt), kv_heads).to(cdt)
         v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads).to(cdt)
-        cache_k[i, :, pos0:pos0 + lc] = k
-        cache_v[i, :, pos0:pos0 + lc] = v
+        if at is None:
+            cache_k[i, :, pos0:pos0 + lc] = k
+            cache_v[i, :, pos0:pos0 + lc] = v
+        else:
+            cache_k[i].index_copy_(1, at, k)
+            cache_v[i].index_copy_(1, at, v)
         a = _attention(q, cache_k[i, :, :keys], cache_v[i, :, :keys], cdt,
-                       mask=self_mask)
+                       mask=self_mask, neg=neg)
         x = x + _dot(a, lp["o_w"], cdt) + lp["o_b"]
 
         h = _layer_norm(x, lp["lnx_g"], lp["lnx_b"])
@@ -573,7 +602,8 @@ def _decoder_layer(x, lp: Params, enc_out, causal, cfg: WhisperConfig,
     q = _split_heads(_dot(h, lp["q_w"], cdt) + lp["q_b"], heads)
     k = _split_heads(_dot(h, lp["k_w"], cdt), kv_heads)
     v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads)
-    a = reduce_from_model(_dot(_attention(q, k, v, cdt, mask=causal),
+    a = reduce_from_model(_dot(_attention(q, k, v, cdt, mask=causal,
+                                          neg=_neg(cdt, x.device)),
                                lp["o_w"], cdt)) + lp["o_b"]
     if rate > 0.0:
         a = _dropout(a, rate, gen)
