@@ -27,8 +27,13 @@ then runs, in order:
      kernels at seven shapes with a finite-difference spot check. Every
      kernel is called twice and must give the same bits (the mel kernel, the
      bf16 attention, the quantized products, the cross-attention, the
-     backward kernels). Then the device memory still allocated, before and
-     after cuBLAS's workspaces (the yardsticks') are freed;
+     backward kernels). Then the audio LM at Moonlight-16B-A3B's widths
+     (``audio_lm_phase``): the routed experts' grouped products (K7) against
+     their plain version at a beam step's and a prefill's rows, under an
+     even and a skewed routing, and one ``segment()`` through the audio LM,
+     K7's launches counted over it and its expert load read. Then the
+     device memory still allocated, before and after cuBLAS's workspaces
+     (the yardsticks') are freed;
   3. golden: the shipped tiny checkpoint at float32 on the card must give the
      JAX package's segment table (whisperseg_torch/golden_tiny.json);
   4. serve: one ``Segmenter`` on the shipped base checkpoint (bfloat16 as
@@ -925,6 +930,157 @@ def check_cross_attention(device) -> dict:
                    # scaled_dot_product_attention takes no int8 K/V
                    "library_ms": None}
     return row
+
+
+# ----------------------------------------------------------------- audio LM
+
+AUDIO_LM_CONFIG = os.path.join(ROOT, "perfbench", "configs",
+                               "whisperseg-moonlight-a3b.json")
+# (phase, rows) of the routed experts' product in the benchmark's cell: a
+# beam step of batch 16 x beam 4, and a batch prefill of 16 prefixes of 503
+MOE_SHAPES = (("decode", 64), ("prefill", 16 * 503))
+# the routings of the check: each expert's scores offset by this many
+# standard deviations, the offset shared by the tokens. 0: even; 2: the
+# benchmark cell's load, whose random weights send a decode step's 384
+# pairs to ~20 experts, the busiest taking ~60, and a prefill's busiest
+# expert ~15 % of its pairs (PERF.md)
+MOE_SKEWS = (0.0, 2.0)
+MOE_CELL_SKEW = 2.0
+MOE_TOL = 2e-2          # of max|plain|: the grouped products round to bf16
+AUDIO_LM_SEED = 2_147_483_659
+# the request of the audio-LM phase: the benchmark cell's settings
+AUDIO_LM_REQUEST = {"sr": SR, "spec_time_step": SPEC_TIME_STEP,
+                    "min_frequency": 0, "num_trials": 1, "num_beams": 4,
+                    "batch_size": 16, "max_length": 32}
+
+
+def check_moe(device, model: dict) -> list:
+    """K7 (ops/moe.py: three grouped products over the pairs sorted by
+    expert) against its plain version (a loop over the experts) at the
+    audio LM's widths in bf16, at each of MOE_SHAPES under each of
+    MOE_SKEWS: the largest difference (MOE_TOL of max|plain|), a second
+    call bit-identical, the time with the routing's bookkeeping (also
+    replayed from a CUDA graph) beside the least time of the work the
+    routing asks for (``perfbench/roofline_moe.py``'s bytes and
+    operations). Returns the rows at the cell's load (MOE_CELL_SKEW)."""
+    from perfbench import roofline_moe
+    from whisperseg_torch.ops import moe
+
+    e, d, f, k = (model["n_routed_experts"], model["hidden_size"],
+                  model["moe_intermediate_size"], model["num_experts_per_tok"])
+    gen = torch.Generator(device=device).manual_seed(1)
+    gate, up = (torch.randn(e, d, f, generator=gen, device=device)
+                .mul_(d ** -0.5).to(torch.bfloat16) for _ in range(2))
+    down = torch.randn(e, f, d, generator=gen, device=device).mul_(
+        f ** -0.5).to(torch.bfloat16)
+    rows = []
+    for phase, tokens in MOE_SHAPES:
+        x = torch.randn(tokens, d, generator=gen, device=device).to(
+            torch.bfloat16)
+        for skew in MOE_SKEWS:
+            scores = (torch.randn(tokens, e, generator=gen, device=device)
+                      + skew * torch.randn(e, generator=gen, device=device))
+            idx = scores.topk(k, dim=-1).indices
+            counts = moe.expert_counts(idx, e)
+
+            def kernel():
+                return moe.expert_mlp(x, idx, gate, up, down, counts)
+            got = kernel()
+            same = torch.equal(got, kernel())
+            want = moe.expert_mlp_plain(x, idx, gate, up, down)
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            ms = cuda_ms(kernel, 20)
+            in_graph = graph_ms(kernel, 10)
+            plain_ms = cuda_ms(
+                lambda: moe.expert_mlp_plain(x, idx, gate, up, down), 2)
+            hit = int((counts > 0).sum())
+            bound_ms, bound_by = bound(
+                roofline_moe.moe_bytes(model, tokens * k, hit),
+                roofline_moe.moe_flops(model, tokens * k), torch.bfloat16)
+            print(f"  expert_mlp {phase:7s} [{tokens}, {d}] top {k} of {e}, "
+                  f"skew {skew:g}: {hit} experts hit, the busiest "
+                  f"{int(counts.max())} of {tokens * k} pairs; max|err| "
+                  f"{err:.2e} ({err / top:.1e} of max|plain|, tol "
+                  f"{MOE_TOL:g}); second call "
+                  f"{'identical' if same else 'DIFFERS'}\n    grouped "
+                  f"{ms:.4f} ms (graph {in_graph:.4f} ms, "
+                  f"{100 * bound_ms / in_graph:.1f} % of the bound)  plain "
+                  f"{plain_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})",
+                  flush=True)
+            if not (err <= MOE_TOL * top and same):
+                raise AssertionError(f"expert_mlp {phase} skew {skew}: "
+                                     f"max|err| {err}, max|plain| {top}, "
+                                     f"second call identical {same}")
+            if skew == MOE_CELL_SKEW:
+                rows.append({"name": f"expert_mlp_{phase}",
+                             "route": "torch._grouped_mm",
+                             "source": "whisperseg_torch/ops/moe.py",
+                             # the JAX package has no mixture of experts
+                             "replaces": None, "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "library_ms": None})
+    return rows
+
+
+def audio_lm_phase(device) -> list:
+    """The ``audio_lm`` family at Moonlight-16B-A3B's published widths (the
+    benchmark's configuration, whisper-large-v2's encoder in front; random
+    weights from ``perfbench/weights_audio_lm.py``): K7 checked (:func:`check_moe`), then a 30 s
+    request through ``Segmenter.segment()`` by beam search at the cell's
+    settings, K7's launches counted from zero over it (the prefill's and
+    the captured step's), and the same request again under a profiler, for
+    the expert load its ``segment.decode`` spans count. The weights are
+    freed at the end. Returns K7's rows
+    with that launch count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench import weights as wt
+    from perfbench import weights_audio_lm as wal
+    from whisperseg_torch import profiling
+    from whisperseg_torch.ops import moe
+    from whisperseg_torch.segmenter import Segmenter
+    from whisperseg_torch.synthetic import tone_bursts
+
+    with open(AUDIO_LM_CONFIG) as f:
+        model = json.load(f)
+    rows = check_moe(device, model)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flat = wal.random_weights(model, AUDIO_LM_SEED, device, torch.bfloat16)
+    seg = Segmenter(wt.tree(flat), wal.program_config(model),
+                    inference_dtype="bfloat16", device=device)
+    del flat
+    torch.cuda.synchronize()
+    print(f"  Moonlight-16B-A3B behind whisper-large-v2: weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    audio = tone_bursts(AUDIO_LM_SEED, sr=SR, duration=30.0)
+    moe.launches = 0
+    t0 = time.perf_counter()
+    table = seg.segment(audio, **AUDIO_LM_REQUEST)
+    wall = time.perf_counter() - t0
+    launches = moe.launches
+    start = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        seg.segment(audio, **AUDIO_LM_REQUEST)
+    load = {}
+    for r in profiling.recorded(start, time.time_ns()):
+        if r.name == "segment.decode":
+            for key, v in r.counts.items():
+                load[key] = load.get(key, 0) + v
+    print(f"  segment() of 30 s, beam 4, batch 16: {wall:.2f} s (kernels "
+          f"built, the step captured), {len(table['onset'])} segments; "
+          f"grouped products launched {launches} times; expert load {load}",
+          flush=True)
+    if not launches > 0 or not load.get("routed_decode"):
+        raise AssertionError(f"audio LM: grouped products launched "
+                             f"{launches} times, expert load {load}")
+    del seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["launches"] = launches
+    return rows
 
 
 # ------------------------------------------------------------------- golden
@@ -2970,6 +3126,9 @@ def main() -> int:
     rows = [check_melproject(device), *check_attention(device),
             check_qdot(device, 8, floor_ms), check_qdot(device, 4, floor_ms),
             check_cross_attention(device), *check_attention_backward(device)]
+    print("[audio LM] Moonlight-16B-A3B's routed experts (K7) against their "
+          "plain version, then segment() through the audio LM", flush=True)
+    moe_rows = audio_lm_phase(device)
     # the yardsticks' captures ran cuBLAS on their own streams, each of which
     # keeps a workspace; freed here so that the later phases' peaks measure
     # the port
@@ -3039,6 +3198,8 @@ def main() -> int:
     parallel_phase(device, seg)
     for row in rows:
         row["launches"] = launches[row["name"]]
+    rows += moe_rows
+    for row in rows:
         if not row["launches"] > 0:
             raise AssertionError(f"{row['name']} was never launched on its path")
 

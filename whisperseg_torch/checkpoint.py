@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .models import audio_lm
 from .models.config import WhisperConfig
 from .ops.quant import Quant4Tensor, QuantTensor
 
@@ -67,10 +68,13 @@ def _check_tree(params: dict, cfg: WhisperConfig) -> None:
     d = cfg.d_model
     want = {
         "encoder.layers.q_w": (cfg.encoder_layers, d, d),
-        "decoder.layers.q_w": (cfg.decoder_layers, d, d),
         "encoder.conv1_w": (3, cfg.num_mel_bins, d),
-        "decoder.tok_emb": (cfg.vocab_size, d),
     }
+    if cfg.decoder_family == "audio_lm":
+        want.update(audio_lm.expected_shapes(cfg))
+    else:
+        want.update({"decoder.layers.q_w": (cfg.decoder_layers, d, d),
+                     "decoder.tok_emb": (cfg.vocab_size, d)})
     flat = _flatten(params)
     for key, shape in want.items():
         if key not in flat:

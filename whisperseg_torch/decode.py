@@ -15,6 +15,14 @@ graph over static buffers, per device, weights and shape, and each later
 step is one replay; its ``decode.step`` span counts ``graphed=1``. The
 tokens are those of the eager loop.
 
+Beam search runs either decoder family (models/config.py) through one small
+interface (``_FAMILIES``): the prefill of each window, which returns what
+every step reads (Whisper's cross K/V; the audio LM's prefix cache, one a
+window, shared by its beams and never reordered) and the logits of the
+first pick; the cache of the generated tokens, which beams reorder; the
+step; and the bytes of a graph's static buffers. Greedy search, sampling,
+speculative decoding and int8 cross K/V are Whisper's alone.
+
 Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
 ``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
 standard Gumbel noise, drawn once per step from a ``noise`` callable (by
@@ -42,6 +50,7 @@ import torch
 
 from . import profiling
 from . import tokenizer as tok
+from .models import audio_lm
 from .models.config import WhisperConfig
 from .models.whisper import (compute_dtype, decoder_step, encoder_forward,
                              init_cache, precompute_cross_kv)
@@ -159,12 +168,16 @@ def generate(params, cfg: WhisperConfig, features=None, max_length: int = 448,
              num_beams: int = 1, top_k: int = 1, top_p: float = 1.0,
              length_penalty: float = 1.0, constrained: bool = False,
              int8_kv: bool = False, enc_out=None,
-             noise: Optional[Noise] = None) -> torch.Tensor:
+             noise: Optional[Noise] = None,
+             stats: Optional[dict] = None) -> torch.Tensor:
     """Features [B, num_mel_bins, T] (or a ready ``enc_out`` [B, S, D]) ->
     token ids [B, max_length] (prompt included, PAD-padded). ``int8_kv``
     keeps the cross-attention K/V in int8 (ops/cross_attention.py).
     ``noise`` gives the Gumbel noise of sampling, one call a step (default:
-    a ``torch.Generator`` seeded with 0 on the encoder output's device)."""
+    a ``torch.Generator`` seeded with 0 on the encoder output's device).
+    An ``audio_lm`` decoder decodes by beam search only; its search adds
+    the expert load to ``stats`` where given (one host read)."""
+    _check_family(cfg, num_beams, int8_kv)
     if enc_out is None:
         enc_out = encoder_forward(params, cfg, features)
     if num_beams <= 1:
@@ -174,7 +187,22 @@ def generate(params, cfg: WhisperConfig, features=None, max_length: int = 448,
         return _generate_greedy(params, cfg, enc_out, max_length, int8_kv,
                                 top_k, top_p, constrained, noise)
     return _generate_beam(params, cfg, enc_out, max_length, num_beams,
-                          length_penalty, int8_kv)
+                          length_penalty, int8_kv, stats)
+
+
+def _check_family(cfg: WhisperConfig, num_beams: int, int8_kv: bool) -> None:
+    """Raise for what the config's decoder family cannot decode: an
+    ``audio_lm`` decoder decodes by beam search alone (num_beams > 1) and
+    has no cross-attention K/V."""
+    if cfg.decoder_family == "whisper":
+        return
+    if num_beams <= 1:
+        raise ValueError("an audio_lm decoder decodes by beam search only "
+                         "(num_beams > 1): greedy search, sampling and "
+                         "speculative decoding are not supported")
+    if int8_kv:
+        raise ValueError("an audio_lm decoder has no cross-attention K/V to "
+                         "keep in int8 (int8_kv)")
 
 
 def _prompt(rows: int, device) -> torch.Tensor:
@@ -254,6 +282,9 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
     slots run out. ``stats``, when given, gains ``verify_forwards`` (the
     target's chunk forwards) and ``committed`` (tokens committed, a device
     scalar)."""
+    if "audio_lm" in (cfg.decoder_family, draft_cfg.decoder_family):
+        raise ValueError("speculative decoding runs Whisper decoders only, "
+                         "not an audio_lm decoder")
     if cfg.vocab_size != draft_cfg.vocab_size:
         raise ValueError("the draft and the target must share the vocabulary")
     k = spec_k
@@ -409,21 +440,166 @@ def _keep_going(live_scores, lengths, bank_scores, lp_pow: float):
     return (best_live > worst_bank).any()
 
 
-def _beam_step(params, cfg, xk, xv, seq_len: int, k: int, lp_pow: float,
+# ------------------------------------------------------------ decoder families
+
+
+class _Whisper:
+    """Whisper's decoder: cross K/V for every row (each beam its copy of its
+    window's) and the self-attention cache ``ck`` / ``cv``."""
+    CACHE = ("ck", "cv")
+
+    @staticmethod
+    def leaves(params) -> list:
+        dec = params["decoder"]
+        return ([v for name, v in dec.items() if name != "layers"]
+                + list(dec["layers"].values()))
+
+    @staticmethod
+    def static_bytes(cfg, batch: int, k: int, max_length: int,
+                     seq_len: int) -> int:
+        per_pos = (cfg.decoder_layers * batch * k * cfg.kv_heads * cfg.head_dim
+                   * torch.empty((), dtype=compute_dtype(cfg)).element_size())
+        return 2 * per_pos * (seq_len + max_length)
+
+    @staticmethod
+    def buffers(cfg, device, batch: int, k: int, max_length: int,
+                seq_len: int):
+        shape = (cfg.decoder_layers, batch * k, seq_len, cfg.kv_heads,
+                 cfg.head_dim)
+        xk = torch.empty(shape, dtype=compute_dtype(cfg), device=device)
+        ck, cv = init_cache(cfg, batch * k, max_length, device)
+        return (xk, torch.empty_like(xk)), {"ck": ck, "cv": cv}
+
+    @staticmethod
+    def prefill(params, cfg, enc_out, k: int, max_length: int, int8_kv: bool,
+                buffers):
+        batch, device = enc_out.shape[0], enc_out.device
+        seq_len = enc_out.shape[1]
+        # encoder state expanded to B*K rows, beam-major within each batch
+        # item; beams reorder the self-attention cache only, never these
+        xk, xv = precompute_cross_kv(
+            params, cfg, enc_out.repeat_interleave(k, dim=0), int8_kv=int8_kv,
+            out=None if buffers is None else buffers[0])
+        if buffers is None:
+            ck, cv = init_cache(cfg, batch * k, max_length, device)
+        else:
+            ck, cv = buffers[1]["ck"].zero_(), buffers[1]["cv"].zero_()
+        logits, ck, cv = decoder_step(params, cfg, xk, xv,
+                                      _prompt(batch * k, device), 0, ck, cv,
+                                      cross_seq_len=seq_len)
+        return (xk, xv, seq_len), {"ck": ck, "cv": cv}, logits[:, -1]
+
+    @staticmethod
+    def step(params, cfg, memory, cache, cur, pos):
+        xk, xv, seq_len = memory
+        logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
+                                      cache["ck"], cache["cv"],
+                                      cross_seq_len=seq_len)
+        return logits[:, -1], {"ck": ck, "cv": cv}
+
+    @staticmethod
+    def count(memory, stats: dict) -> None:
+        pass
+
+
+def _tree_leaves(node) -> list:
+    if isinstance(node, dict):
+        return [leaf for v in node.values() for leaf in _tree_leaves(v)]
+    return [node]
+
+
+class _AudioLM:
+    """The audio LM (models/audio_lm.py): the prefix cache of each window,
+    written by its prefill and shared by its beams; the generated tokens'
+    cache ``kv`` [L, B*K, max_length - prompt, r + dr]; and the expert load
+    summed on the device, [prefill, decode] x [routed pairs, experts that
+    got any, the busiest expert's pairs], read once after the search."""
+    CACHE = ("kv",)
+    LOAD = ("routed", "experts", "busiest")
+
+    @staticmethod
+    def leaves(params) -> list:
+        return _tree_leaves(params["lm"])
+
+    @staticmethod
+    def static_bytes(cfg, batch: int, k: int, max_length: int,
+                     seq_len: int) -> int:
+        c = audio_lm.lm_config(cfg)
+        pl = audio_lm.prompt_length()
+        item = torch.empty((), dtype=compute_dtype(cfg)).element_size()
+        return (c.num_hidden_layers * c.latent * item
+                * batch * (seq_len + pl + k * (max_length - pl)))
+
+    @staticmethod
+    def buffers(cfg, device, batch: int, k: int, max_length: int,
+                seq_len: int):
+        c = audio_lm.lm_config(cfg)
+        pl = audio_lm.prompt_length()
+        prefix = torch.empty((c.num_hidden_layers, batch, seq_len + pl,
+                              c.latent), dtype=compute_dtype(cfg),
+                             device=device)
+        load = torch.zeros((2, 3), dtype=torch.long, device=device)
+        return (prefix, load), {"kv": audio_lm.init_cache(
+            cfg, batch * k, max_length - pl, device)}
+
+    @staticmethod
+    def prefill(params, cfg, enc_out, k: int, max_length: int, int8_kv: bool,
+                buffers):
+        batch, device = enc_out.shape[0], enc_out.device
+        pl = audio_lm.prompt_length()
+        with profiling.span("segment.prefill", windows=batch) as span:
+            if buffers is None:
+                prefix, load = None, torch.zeros((2, 3), dtype=torch.long,
+                                                 device=device)
+                cache = audio_lm.init_cache(cfg, batch * k, max_length - pl,
+                                            device)
+            else:
+                (prefix, load), cache = buffers[0], buffers[1]["kv"]
+                load.zero_()
+                cache.zero_()
+            logits, prefix = audio_lm.prefill(params, cfg, enc_out, out=prefix,
+                                              load=load[0])
+            span.settle(device)
+        return (prefix, load), {"kv": cache}, logits
+
+    @staticmethod
+    def step(params, cfg, memory, cache, cur, pos):
+        prefix, load = memory
+        logits = audio_lm.step(params, cfg, prefix, cache["kv"], cur,
+                               pos - audio_lm.prompt_length(), load=load[1])
+        return logits, cache
+
+    @staticmethod
+    def count(memory, stats: dict) -> None:
+        rows = memory[1].tolist()
+        for phase, row in zip(("prefill", "decode"), rows):
+            for name, value in zip(_AudioLM.LOAD, row):
+                key = f"{name}_{phase}"
+                stats[key] = stats.get(key, 0) + int(value)
+
+
+_FAMILIES = {"whisper": _Whisper, "audio_lm": _AudioLM}
+
+
+# ---------------------------------------------------------------------- beam
+
+
+def _beam_step(params, cfg, family, memory, k: int, lp_pow: float,
                s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """One beam-search step from the state ``s`` (``_generate_beam``) at
     its device-side position ``s["pos"]``: the next state. It writes the
-    step's K/V into ``s["ck"]`` / ``s["cv"]`` and changes nothing else of
-    ``s``, and no shape, launch or host read depends on the position or the
-    data, so a CUDA graph can capture it."""
+    step's cache entries into the family's cache in ``s`` and changes
+    nothing else of ``s``, and no shape, launch or host read depends on the
+    position or the data, so a CUDA graph can capture it."""
     tokens, pos = s["tokens"], s["pos"]
     rows, max_length = tokens.shape
     batch, vocab = rows // k, cfg.vocab_size
     nxt = pos + 1
     at = nxt.reshape(1)     # the column this step's tokens take
-    logits, ck, cv = decoder_step(params, cfg, xk, xv, s["cur"][:, None], pos,
-                                  s["ck"], s["cv"], cross_seq_len=seq_len)
-    logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    logits, cache = family.step(params, cfg, memory,
+                                {n: s[n] for n in family.CACHE}, s["cur"],
+                                pos)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     total = s["live_scores"].reshape(-1, 1) + logp                 # [B*K, V]
     c_scores, c_parent, c_tok = _beam_candidates(
         total.reshape(batch, k * vocab), k, vocab)                 # [B, 2K]
@@ -449,15 +625,13 @@ def _beam_step(params, cfg, xk, xv, seq_len: int, k: int, lp_pow: float,
     tokens.index_copy_(1, at, cur[:, None])
     return {"tokens": tokens, "bank_scores": bank_scores,
             "bank_tokens": bank_tokens, "live_scores": live_scores,
-            "lengths": lengths, "cur": cur, "ck": ck[:, beams],
-            "cv": cv[:, beams], "pos": nxt,
+            "lengths": lengths, "cur": cur,
+            **{n: c[:, beams] for n, c in cache.items()}, "pos": nxt,
             "go": _keep_going(live_scores, lengths, bank_scores, lp_pow)}
 
 
 def _decoder_leaves(params) -> list:
-    dec = params["decoder"]
-    return ([v for name, v in dec.items() if name != "layers"]
-            + list(dec["layers"].values()))
+    return (_AudioLM if "lm" in params else _Whisper).leaves(params)
 
 
 def graph_engages(params, device, int8_kv: bool) -> bool:
@@ -495,19 +669,19 @@ def _capture(body: Callable[[], None], device) -> Callable[[], None]:
 
 
 class _BeamGraph:
-    """One beam-search shape on one device: static buffers for the cross K/V,
-    the self-attention cache and the search's state, and the CUDA graph of
-    one step over them, captured at the first step run and replayed after.
-    ``lock`` is held by the search that uses the buffers."""
+    """One beam-search shape on one device: the decoder family's static
+    buffers (what every step reads, and the cache of the generated tokens),
+    the search's state, and the CUDA graph of one step over them, captured
+    at the first step run and replayed after. ``lock`` is held by the
+    search that uses the buffers."""
 
-    def __init__(self, cfg: WhisperConfig, device, rows: int, max_length: int,
-                 seq_len: int):
-        shape = (cfg.decoder_layers, rows, seq_len, cfg.kv_heads, cfg.head_dim)
+    def __init__(self, cfg: WhisperConfig, device, batch: int, k: int,
+                 max_length: int, seq_len: int):
+        family = _FAMILIES[cfg.decoder_family]
         self.device = device
-        self.nbytes = _static_bytes(cfg, rows, max_length, seq_len)
-        self.xk = torch.empty(shape, dtype=compute_dtype(cfg), device=device)
-        self.xv = torch.empty_like(self.xk)
-        self.ck, self.cv = init_cache(cfg, rows, max_length, device)
+        self.nbytes = family.static_bytes(cfg, batch, k, max_length, seq_len)
+        self.buffers = family.buffers(cfg, device, batch, k, max_length,
+                                      seq_len)
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.replay: Optional[Callable[[], None]] = None
         self.lock = threading.Lock()
@@ -517,7 +691,8 @@ class _BeamGraph:
         """The state after the seed step copied into the static buffers
         (the caches are the static ones already); returns those."""
         if self.state is None:
-            self.state = {n: t if t is self.ck or t is self.cv
+            own = list(self.buffers[1].values())
+            self.state = {n: t if any(t is c for c in own)
                           else torch.empty_like(t) for n, t in state.items()}
         for n, t in state.items():
             if t is not self.state[n]:
@@ -538,11 +713,12 @@ class _BeamGraph:
 
 
 def _static_bytes(cfg: WhisperConfig, rows: int, max_length: int,
-                  seq_len: int) -> int:
-    """The bytes of a graph's cross K/V and self-attention cache."""
-    per_pos = (cfg.decoder_layers * rows * cfg.kv_heads * cfg.head_dim
-               * torch.empty((), dtype=compute_dtype(cfg)).element_size())
-    return 2 * per_pos * (seq_len + max_length)
+                  seq_len: int, k: int = 1) -> int:
+    """The bytes of a graph's static buffers: what every step reads and
+    the caches (Whisper's cross K/V and self-attention cache), for ``rows``
+    = windows x ``k`` beams."""
+    return _FAMILIES[cfg.decoder_family].static_bytes(
+        cfg, rows // k, k, max_length, seq_len)
 
 
 def _device_memory(device) -> int:
@@ -551,9 +727,9 @@ def _device_memory(device) -> int:
 
 # The beam graphs by device, weights and shape. A graph keeps its static
 # buffers between calls: each device keeps its most recently used graphs
-# while their cross K/V and caches fit in _GRAPH_SHARE of its memory, and a
-# shape that alone does not fit runs eagerly. A graph is also dropped when
-# one of the weights it reads is freed.
+# while their static buffers fit in _GRAPH_SHARE of its memory, and a shape
+# that alone does not fit runs eagerly. A graph is also dropped when one of
+# the weights it reads is freed.
 _GRAPHS: "OrderedDict[tuple, _BeamGraph]" = OrderedDict()
 _GRAPHS_LOCK = threading.RLock()
 _GRAPH_SHARE = 0.25
@@ -572,16 +748,17 @@ def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
     on ``device``, made on first use; None where the shape's buffers alone
     exceed the device's share."""
     device = torch.device(device)
-    leaves = _decoder_leaves(params)
+    leaves = _FAMILIES[cfg.decoder_family].leaves(params)
     key = (device, tuple((id(w), w.data_ptr()) for w in leaves),
-           cfg.decoder_layers, cfg.num_heads, cfg.kv_heads, cfg.vocab_size,
-           cfg.compute_dtype, batch, k, max_length, seq_len, lp_pow)
+           cfg.decoder_family, cfg.decoder_layers, cfg.num_heads,
+           cfg.kv_heads, cfg.vocab_size, cfg.compute_dtype, batch, k,
+           max_length, seq_len, lp_pow)
     with _GRAPHS_LOCK:
         graph = _GRAPHS.get(key)
         if graph is not None:
             _GRAPHS.move_to_end(key)
             return graph
-        need = _static_bytes(cfg, batch * k, max_length, seq_len)
+        need = _static_bytes(cfg, batch * k, max_length, seq_len, k)
         budget = _GRAPH_SHARE * _device_memory(device)
         if need > budget:
             return None
@@ -592,7 +769,7 @@ def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
                 break
             del _GRAPHS[n]
             used -= g.nbytes
-        graph = _BeamGraph(cfg, device, batch * k, max_length, seq_len)
+        graph = _BeamGraph(cfg, device, batch, k, max_length, seq_len)
         graph.refs = [weakref.ref(w, lambda _ref, key=key: _forget(key))
                       for w in leaves]
         _GRAPHS[key] = graph
@@ -600,7 +777,8 @@ def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
 
 
 def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
-                   length_penalty: float, int8_kv: bool = False) -> torch.Tensor:
+                   length_penalty: float, int8_kv: bool = False,
+                   stats: Optional[dict] = None) -> torch.Tensor:
     """Beam search; its steps replay a CUDA graph where
     :func:`graph_engages`, with the same tokens."""
     device = enc_out.device
@@ -611,42 +789,33 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
                             float(length_penalty))
     if graph is None:
         return _beam_search(params, cfg, enc_out, max_length, num_beams,
-                            float(length_penalty), int8_kv, None)
+                            float(length_penalty), int8_kv, None, stats)
     with graph.lock:
         tokens = _beam_search(params, cfg, enc_out, max_length, num_beams,
-                              float(length_penalty), int8_kv, graph)
+                              float(length_penalty), int8_kv, graph, stats)
         if device.type == "cuda":   # the buffers are read before the next use
             torch.cuda.current_stream(device).synchronize()
     return tokens
 
 
 def _beam_search(params, cfg, enc_out, max_length: int, k: int,
-                 lp_pow: float, int8_kv: bool,
-                 graph: Optional[_BeamGraph]) -> torch.Tensor:
+                 lp_pow: float, int8_kv: bool, graph: Optional[_BeamGraph],
+                 stats: Optional[dict] = None) -> torch.Tensor:
+    family = _FAMILIES[cfg.decoder_family]
     batch, device = enc_out.shape[0], enc_out.device
-    seq_len = enc_out.shape[1]
     vocab = cfg.vocab_size
     f32 = torch.float32
 
-    # encoder state expanded to B*K rows, beam-major within each batch item;
-    # beams reorder the self-attention cache only, never the cross K/V
-    xk, xv = precompute_cross_kv(
-        params, cfg, enc_out.repeat_interleave(k, dim=0), int8_kv=int8_kv,
-        out=None if graph is None else (graph.xk, graph.xv))
-    if graph is None:
-        ck, cv = init_cache(cfg, batch * k, max_length, device)
-    else:
-        ck, cv = graph.ck.zero_(), graph.cv.zero_()
+    memory, cache, logits = family.prefill(
+        params, cfg, enc_out, k, max_length, int8_kv,
+        None if graph is None else graph.buffers)
     prompt = _prompt(batch * k, device)
     pl = prompt.shape[1]
     tokens = torch.full((batch * k, max_length), tok.PAD_ID, dtype=torch.long,
                         device=device)
     tokens[:, :pl] = prompt
-
-    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv,
-                                  cross_seq_len=seq_len)
-    logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
-    logp0 = logp.reshape(batch, k, -1)[:, 0]  # beams identical at step 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp0 = logp.reshape(batch, -1, vocab)[:, 0]  # beams identical at step 0
 
     # seed step: one virtual parent; split the top-2K into bank and live
     c_scores, _, c_tok = _beam_candidates(logp0, k, vocab)        # [B, 2K]
@@ -666,14 +835,14 @@ def _beam_search(params, cfg, enc_out, max_length: int, k: int,
     lengths = torch.ones((batch, k), dtype=torch.long, device=device)
     s = {"tokens": tokens, "bank_scores": bank_scores,
          "bank_tokens": bank_tokens, "live_scores": live_scores,
-         "lengths": lengths, "cur": cur, "ck": ck, "cv": cv,
+         "lengths": lengths, "cur": cur, **cache,
          "pos": torch.full((), pl, dtype=torch.long, device=device),
          "go": _keep_going(live_scores, lengths, bank_scores, lp_pow)}
     if graph is not None:
         s = graph.load(s)
 
     def step(state):
-        return _beam_step(params, cfg, xk, xv, seq_len, k, lp_pow, state)
+        return _beam_step(params, cfg, family, memory, k, lp_pow, state)
 
     for _ in range(pl, max_length - 1):     # the step at each position
         graphed = graph is not None and graph.replay is not None
@@ -692,4 +861,7 @@ def _beam_search(params, cfg, enc_out, max_length: int, k: int,
     all_tokens = torch.cat([s["bank_tokens"],
                             s["tokens"].reshape(batch, k, max_length)], dim=1)
     best = torch.argmax(all_scores, dim=1)
-    return all_tokens[torch.arange(batch, device=device), best]
+    out = all_tokens[torch.arange(batch, device=device), best]
+    if stats is not None:
+        family.count(memory, stats)
+    return out

@@ -4,13 +4,23 @@ Whisper's published family sizes with the two WhisperSeg changes:
 ``max_source_positions = total_spec_columns // 2`` and the compact 1024-token
 vocabulary. The config also carries the segmentation metadata stored with a
 checkpoint (``total_spec_columns``, ``cluster_codebook``,
-``default_segmentation_config``)."""
+``default_segmentation_config``).
+
+``decoder_family`` names what turns the encoder's states into tokens:
+``"whisper"`` for a ``WhisperConfig``, Whisper's own decoder with
+cross-attention, or ``"audio_lm"`` for an ``AudioLMConfig``, a decoder-only
+language model fed the projected encoder states as its first positions
+(models/audio_lm.py), whose widths ``lm`` carries under the keys of its
+published ``config.json``. Its other fields then describe the encoder
+alone, and ``vocab_size`` is the LM's. A Whisper config's dict and
+``config.json`` hold no family key; ``from_dict`` reads an audio-LM one by
+its ``decoder_family``."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, ClassVar, Dict
 
 from ..constants import DEFAULT_TOTAL_SPEC_COLUMNS, NUM_MEL_BINS
 from ..tokenizer import VOCAB_SIZE
@@ -40,6 +50,7 @@ class WhisperConfig:
     default_segmentation_config: Dict[str, Any] = field(default_factory=dict)
     current_step: int = 0
     model_name: str = "custom"
+    decoder_family: ClassVar[str] = "whisper"
 
     @property
     def head_dim(self) -> int:
@@ -58,8 +69,24 @@ class WhisperConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "WhisperConfig":
+        family = d.get("decoder_family", cls.decoder_family)
+        if family != cls.decoder_family:
+            if family != AudioLMConfig.decoder_family:
+                raise ValueError(f"unknown decoder_family {family!r}")
+            return AudioLMConfig.from_dict(d)
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class AudioLMConfig(WhisperConfig):
+    """An encoder's config with an ``audio_lm`` decoder: the LM's widths in
+    ``lm`` (models/audio_lm.py, ``LMConfig``)."""
+    lm: Dict[str, Any] = field(default_factory=dict)
+    decoder_family: ClassVar[str] = "audio_lm"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dict(super().to_dict(), decoder_family=self.decoder_family)
 
 
 _FAMILY = {

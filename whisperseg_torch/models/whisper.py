@@ -118,11 +118,10 @@ def _stack_layers(gen: torch.Generator, cfg: WhisperConfig, n: int,
     return {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}
 
 
-def init_params(gen: torch.Generator, cfg: WhisperConfig) -> Params:
-    """Fresh float32 parameters on the CPU, drawn from ``gen`` (the JAX
-    package's shapes and scales; its random stream cannot be matched)."""
+def init_encoder(gen: torch.Generator, cfg: WhisperConfig) -> Params:
+    """Fresh float32 encoder parameters on the CPU, drawn from ``gen``."""
     d = cfg.d_model
-    encoder = {
+    return {
         "conv1_w": _dense_init(gen, (3, cfg.num_mel_bins, d),
                                scale=1.0 / math.sqrt(3 * cfg.num_mel_bins)),
         "conv1_b": torch.zeros(d),
@@ -133,6 +132,13 @@ def init_params(gen: torch.Generator, cfg: WhisperConfig) -> Params:
         "layers": _stack_layers(gen, cfg, cfg.encoder_layers, cross=False),
         "ln_post_g": torch.ones(d), "ln_post_b": torch.zeros(d),
     }
+
+
+def init_params(gen: torch.Generator, cfg: WhisperConfig) -> Params:
+    """Fresh float32 parameters on the CPU, drawn from ``gen`` (the JAX
+    package's shapes and scales; its random stream cannot be matched)."""
+    d = cfg.d_model
+    encoder = init_encoder(gen, cfg)
     decoder = {
         "tok_emb": _dense_init(gen, (cfg.vocab_size, d), scale=0.02),
         "pos_emb": torch.zeros(cfg.max_target_positions, d),

@@ -81,6 +81,16 @@ class _Span:
         """Keep no record of this span (its profiler range stays)."""
         self.dropped = True
 
+    def count(self, **counts: int) -> None:
+        """Add counts known only inside the span."""
+        self.counts.update(counts)
+
+    def settle(self, device) -> None:
+        """Wait for the work queued on a CUDA ``device``, so that the span
+        ends with its device work (a cost paid only while recording)."""
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
     def __enter__(self) -> "_Span":
         stack = _stack()
         self.span_id = next(_ids)
@@ -113,6 +123,12 @@ class _Off:
     def drop(self) -> None:
         pass
 
+    def count(self, **counts: int) -> None:
+        pass
+
+    def settle(self, device) -> None:
+        pass
+
     def __enter__(self) -> "_Off":
         return self
 
@@ -129,10 +145,15 @@ def span(name: str, **counts: int):
     records (the profiler's own flag, read once, here; it holds for the
     whole process, while the profiler's ranges reach only the threads it
     traces); else the shared context that does nothing. ``as`` gives an
-    object with ``drop()``."""
-    if not _profiler._is_profiler_enabled:
+    object with ``drop()``, ``count(**counts)`` and ``settle(device)``."""
+    if not recording():
         return _OFF
     return _Span(name, counts)
+
+
+def recording() -> bool:
+    """Whether spans record now (a ``torch.profiler`` is recording)."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 class _Carried(NamedTuple):

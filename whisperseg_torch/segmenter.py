@@ -204,6 +204,10 @@ class Segmenter:
                  inference_dtype: Optional[str] = "bfloat16", device=None,
                  mesh=None):
         if inference_dtype in _QUANT_BITS:
+            if config.decoder_family != "whisper":
+                raise ValueError(f"inference_dtype {inference_dtype!r} "
+                                 "quantizes Whisper decoders only, not an "
+                                 f"{config.decoder_family} decoder")
             params = quantize_params(params, bits=_QUANT_BITS[inference_dtype])
             dtype = torch.bfloat16
         elif inference_dtype in _INFERENCE_DTYPES:
@@ -261,6 +265,10 @@ class Segmenter:
         follows the draft's agreement with it. Applies to greedy requests
         only (``num_beams <= 1``, no sampling, unconstrained, no
         ``int8_kv``). The draft's float32 leaves are cast to bfloat16."""
+        if self.config.decoder_family != "whisper":
+            raise ValueError("speculative decoding runs Whisper decoders "
+                             f"only, not an {self.config.decoder_family} "
+                             "decoder")
         if not os.environ.get("WS_SPEC_NO_WARN"):
             print("Warning: speculative decoding is not faster than plain "
                   "greedy decoding wherever a draft step costs about as much "
@@ -436,7 +444,10 @@ class Segmenter:
             feats = self._features(chunk, device, frontend, real)
             with profiling.span("segment.encoder"):
                 enc = encoder_forward(params, cfg, feats)
-            with profiling.span("segment.decode"):
+            with profiling.span("segment.decode") as span:
+                # the decoder's own counts (an audio LM's expert load), read
+                # once after the search, while spans record
+                counts = {} if profiling.recording() else None
                 if spec:
                     dparams, dcfg = draft
                     tokens = generate_speculative(
@@ -449,7 +460,8 @@ class Segmenter:
                         num_beams=num_beams, top_k=top_k, top_p=top_p,
                         length_penalty=length_penalty,
                         constrained=constrained, int8_kv=int8_kv,
-                        enc_out=enc, noise=noise)
+                        enc_out=enc, noise=noise, stats=counts)
+                    span.count(**(counts or {}))
             if collect_frames:
                 with profiling.span("segment.frame_head"):
                     return (tokens, *_frame_outputs(params, cfg, enc))
