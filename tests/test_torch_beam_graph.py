@@ -1,14 +1,16 @@
 """The beam step's CUDA graph. On the CPU, its bookkeeping with the capture
 replaced by running its body: the search through the static buffers gives
 the eager loop's tokens and reuses one graph a shape, beam widths of equal
-rows keep a graph each, and each device keeps the graphs that fit its share
-of memory. On the card (marked ``card``: each skips without one), on the
-tiny checkpoint's widths: ``decoder_step`` at a device-side position equals
-the int path bit for bit; graphed and eager beam search give the same
-tokens, on the caller's thread and on a worker thread (as the mesh path
-decodes), and for two beam widths of equal rows; two calls of one shape
-capture once and the second replays; each ``decode.step`` span of a
-replayed search says ``graphed=1`` and holds one host launch call. This file
+rows keep a graph each, each device keeps the graphs that fit its share
+of memory, and the buffers hold the cross K/V at a row a window, as many
+bytes as ``static_bytes`` counts. On the card (marked ``card``: each skips
+without one), on the tiny checkpoint's widths: ``decoder_step`` at a
+device-side position equals the int path bit for bit; graphed and eager
+beam search give the same tokens, on the caller's thread and on a worker
+thread (as the mesh path decodes), and for two beam widths of equal rows;
+two calls of one shape capture once and the second replays; each
+``decode.step`` span of a replayed search says ``graphed=1`` and holds one
+host launch call. This file
 imports no JAX, so that it runs on the chip without the suite's conftest:
 ``python3 -m pytest --noconftest tests/test_torch_beam_graph.py -q``."""
 
@@ -243,6 +245,24 @@ def test_beam_search_through_the_static_buffers_gives_the_eager_tokens(
     assert graphed2 == [1] * len(eager)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,k", [(3, 4), (2, 1)])
+def test_static_buffers_hold_the_cross_kv_at_a_row_a_window(
+        tiny, dtype, batch, k):
+    """The graph's buffers hold the cross K/V head-major at one row a window
+    and the self-attention cache at a row a beam; ``static_bytes`` counts
+    exactly the bytes ``buffers`` allocates."""
+    cfg = dataclasses.replace(tiny[1], compute_dtype=dtype)
+    (xk, xv), cache = decode._Whisper.buffers(cfg, "cpu", batch, k, 40, 50)
+    assert xk.shape == xv.shape == (cfg.decoder_layers, batch, cfg.kv_heads,
+                                    50, cfg.head_dim)
+    assert cache["ck"].shape == cache["cv"].shape == (
+        cfg.decoder_layers, batch * k, 40, cfg.kv_heads, cfg.head_dim)
+    held = sum(t.nbytes for t in (xk, xv, *cache.values()))
+    assert decode._Whisper.static_bytes(cfg, batch, k, 40, 50) == held
+    assert decode._static_bytes(cfg, batch * k, 40, 50, k) == held
+
+
 def _graphs_on_the_cpu(monkeypatch, capture, memory=1 << 40):
     """The graph path on the CPU: every search asks for a graph, whose
     capture is ``capture``, in an empty cache, on devices of ``memory``
@@ -282,7 +302,7 @@ def test_each_device_keeps_the_graphs_that_fit_its_share(tiny, monkeypatch):
     used first; another device's graphs are not counted against it; a shape
     that alone does not fit gets no graph."""
     params, cfg = tiny[0], tiny[1]
-    size = decode._static_bytes(cfg, 4, 10, 50)   # a batch of 1, 4 beams
+    size = decode._static_bytes(cfg, 4, 10, 50, 4)   # a batch of 1, 4 beams
     _graphs_on_the_cpu(monkeypatch, _run_body, memory=4 * 3 * size)
 
     def graph(device, batch, max_length=10):

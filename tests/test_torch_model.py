@@ -197,9 +197,11 @@ def test_cross_kv_and_decoder_steps_match_jax(kv_heads):
     enc = (rng.randn(2, 100, 384) * 0.5).astype(np.float32)
     xk, xv = tw.precompute_cross_kv(tparams, cfg, torch.from_numpy(enc))
     jxk, jxv = jw.precompute_cross_kv(jparams, jcfg, jnp.asarray(enc))
-    assert xk.shape == (2, 2, 100, cfg.kv_heads, 64)
-    np.testing.assert_allclose(xk.numpy(), np.asarray(jxk), atol=ATOL)
-    np.testing.assert_allclose(xv.numpy(), np.asarray(jxv), atol=ATOL)
+    assert xk.shape == xv.shape == (2, 2, cfg.kv_heads, 100, 64)  # head-major
+    np.testing.assert_allclose(xk.numpy().transpose(0, 1, 3, 2, 4),
+                               np.asarray(jxk), atol=ATOL)
+    np.testing.assert_allclose(xv.numpy().transpose(0, 1, 3, 2, 4),
+                               np.asarray(jxv), atol=ATOL)
 
     max_len = 12
     ck, cv = tw.init_cache(cfg, 2, max_len, "cpu")

@@ -156,7 +156,7 @@ def test_card_bf16_table_against_jax_head_major(head_major_tables):
     """The table the H100 gave for the request (106, 10 s, 3 trials) in the
     chip smoke run's bf16 serve phase, recorded in
     whisperseg_torch/card_tables_bf16.json, against JAX's head-major table
-    (which the port's CPU table equals). Not identical: 4 of the request's
+    (which the port's CPU table equals). Not identical: 5 of the request's
     14 windows leave JAX's beam-4 tokens at a step where the card's top-2
     logit margin is 0.018-0.14, a near tie between neighbouring time
     tokens that the card's other order of bf16 sums tips

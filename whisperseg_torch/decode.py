@@ -17,8 +17,8 @@ tokens are those of the eager loop.
 
 Beam search runs either decoder family (models/config.py) through one small
 interface (``_FAMILIES``): the prefill of each window, which returns what
-every step reads (Whisper's cross K/V; the audio LM's prefix cache, one a
-window, shared by its beams and never reordered) and the logits of the
+every step reads (Whisper's cross K/V and the audio LM's prefix cache, each
+one a window, shared by its beams and never reordered) and the logits of the
 first pick; the cache of the generated tokens, which beams reorder; the
 step; and the bytes of a graph's static buffers. Greedy search, sampling,
 speculative decoding and int8 cross K/V are Whisper's alone.
@@ -444,8 +444,10 @@ def _keep_going(live_scores, lengths, bank_scores, lp_pow: float):
 
 
 class _Whisper:
-    """Whisper's decoder: cross K/V for every row (each beam its copy of its
-    window's) and the self-attention cache ``ck`` / ``cv``."""
+    """Whisper's decoder: the cross K/V of each window, head-major, read by
+    its beams in place (``decoder_step``), and the self-attention cache
+    ``ck`` / ``cv`` of every row. The int8 cross K/V keeps a copy for each
+    beam (the kernel of ops/cross_attention.py reads a row a query)."""
     CACHE = ("ck", "cv")
 
     @staticmethod
@@ -457,14 +459,14 @@ class _Whisper:
     @staticmethod
     def static_bytes(cfg, batch: int, k: int, max_length: int,
                      seq_len: int) -> int:
-        per_pos = (cfg.decoder_layers * batch * k * cfg.kv_heads * cfg.head_dim
+        per_pos = (cfg.decoder_layers * batch * cfg.kv_heads * cfg.head_dim
                    * torch.empty((), dtype=compute_dtype(cfg)).element_size())
-        return 2 * per_pos * (seq_len + max_length)
+        return 2 * per_pos * (seq_len + k * max_length)
 
     @staticmethod
     def buffers(cfg, device, batch: int, k: int, max_length: int,
                 seq_len: int):
-        shape = (cfg.decoder_layers, batch * k, seq_len, cfg.kv_heads,
+        shape = (cfg.decoder_layers, batch, cfg.kv_heads, seq_len,
                  cfg.head_dim)
         xk = torch.empty(shape, dtype=compute_dtype(cfg), device=device)
         ck, cv = init_cache(cfg, batch * k, max_length, device)
@@ -475,11 +477,12 @@ class _Whisper:
                 buffers):
         batch, device = enc_out.shape[0], enc_out.device
         seq_len = enc_out.shape[1]
-        # encoder state expanded to B*K rows, beam-major within each batch
-        # item; beams reorder the self-attention cache only, never these
+        # rows are beam-major within each batch item; beams reorder the
+        # self-attention cache only, never the cross K/V
         xk, xv = precompute_cross_kv(
-            params, cfg, enc_out.repeat_interleave(k, dim=0), int8_kv=int8_kv,
-            out=None if buffers is None else buffers[0])
+            params, cfg,
+            enc_out.repeat_interleave(k, dim=0) if int8_kv else enc_out,
+            int8_kv=int8_kv, out=None if buffers is None else buffers[0])
         if buffers is None:
             ck, cv = init_cache(cfg, batch * k, max_length, device)
         else:
@@ -499,7 +502,9 @@ class _Whisper:
 
     @staticmethod
     def count(memory, stats: dict) -> None:
-        pass
+        """``cross_rows``: the rows the cross K/V holds."""
+        xk = memory[0][0] if isinstance(memory[0], tuple) else memory[0]
+        stats["cross_rows"] = stats.get("cross_rows", 0) + int(xk.shape[1])
 
 
 def _tree_leaves(node) -> list:

@@ -3,7 +3,8 @@
 The port of the inference half of ``whisperseg_tpu/models/whisper.py``, with
 its layouts: stacked layer weights ``[L, in, out]`` applied as ``x @ w``, conv
 kernels ``[3, in, out]``, features ``[B, 80, T]``, the self-attention cache
-``[L, B, max_len, Hkv, hd]``.
+``[L, B, max_len, Hkv, hd]``. The decode step's cross K/V is head-major,
+``[L, B, Hkv, S, hd]``, one row a window that its beams share.
 
 Numerics follow the JAX package: matmul inputs are cast to
 ``cfg.compute_dtype`` with float32 results (``_dot``), LayerNorm and softmax
@@ -254,6 +255,26 @@ def _attention(q, k, v, cdt, mask=None, neg=None):
     return out.reshape(b, lq, h * hd).float()
 
 
+def _cross_attention(q, k, v, cdt):
+    """The decoder step's cross-attention over head-major K/V, read in
+    place. q [R, Lq, H, hd]; k, v [B, Hkv, S, hd] in ``cdt`` (GQA when
+    Hkv < H), R a multiple of B: the R / B query rows of each K/V row,
+    consecutive (a window's beams, beam-major), attend to it as
+    (R / B) * Lq queries -> [R, Lq, H*hd] float32. The queries are gathered
+    head-major, so each product is one batched matmul over (B, Hkv) with
+    K/V as they lie. Numerics as :func:`_attention`'s."""
+    r, lq, h, hd = q.shape
+    b, hk = k.shape[:2]
+    n = r // b * lq                            # queries a K/V row and head
+    qs = (q * hd ** -0.5).to(cdt).reshape(b, n, hk, h // hk, hd)
+    qs = qs.permute(0, 2, 3, 1, 4).reshape(b, hk, h // hk * n, hd)
+    scores = torch.matmul(qs, k.transpose(-1, -2))           # [B, Hkv, gn, S]
+    probs = torch.softmax(scores.float(), dim=-1).to(cdt)
+    out = torch.matmul(probs, v)                              # [B, Hkv, gn, hd]
+    out = out.reshape(b, hk, h // hk, n, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(r, lq, h * hd).float()
+
+
 def _dense(w, cdt):
     """A quantized weight dequantized whole in ``cdt``; a plain one as it is
     (``dot_f32`` casts it, so a float32 master weight keeps a float32
@@ -455,25 +476,31 @@ def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
                         enc_out: torch.Tensor, int8_kv: bool = False,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Cross-attention K/V of every decoder layer: ([Ld, B, S, Hkv, hd],
-    same) in the compute dtype. With ``int8_kv`` each becomes a pair (int8
-    values [Ld, B, S, Hkv*hd], bf16 scales [Ld, B, S, Hkv]), quantized from
-    the compute-dtype K/V (ops/cross_attention.py). Each layer's K/V is
-    written into ``out``, a pair of tensors of the float shape (not with
-    ``int8_kv``), or else into a pair made here."""
+    """Cross-attention K/V of every decoder layer, head-major: ([Ld, B, Hkv,
+    S, hd], same) in the compute dtype, the layout the decoder step's
+    products read in place (:func:`_cross_attention`). With ``int8_kv``
+    each becomes a pair (int8 values [Ld, B, S, Hkv*hd], bf16 scales
+    [Ld, B, S, Hkv]), quantized from the compute-dtype K/V in the
+    position-major layout [Ld, B, S, Hkv, hd] (ops/cross_attention.py).
+    Each layer's K/V is written into ``out``, a pair of tensors of the
+    float shape (not with ``int8_kv``), or else into a pair made here."""
     layers = params["decoder"]["layers"]
     cdt = compute_dtype(cfg)
+    batch, seq = enc_out.shape[:2]
+    kv_heads, hd = cfg.kv_heads, cfg.head_dim
     if out is None:
-        shape = (cfg.decoder_layers, *enc_out.shape[:2], cfg.kv_heads,
-                 cfg.head_dim)
+        shape = ((cfg.decoder_layers, batch, seq, kv_heads, hd) if int8_kv
+                 else (cfg.decoder_layers, batch, kv_heads, seq, hd))
         out = (torch.empty(shape, dtype=cdt, device=enc_out.device),
                torch.empty(shape, dtype=cdt, device=enc_out.device))
     k, v = out
     for i in range(cfg.decoder_layers):
         lp = _layer(layers, i)
-        k[i].copy_(_split_heads(_dot(enc_out, lp["xk_w"], cdt), cfg.kv_heads))
-        v[i].copy_(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
-                                cfg.kv_heads))
+        ki, vi = (k[i], v[i]) if int8_kv else (k[i].transpose(1, 2),
+                                               v[i].transpose(1, 2))
+        ki.copy_(_split_heads(_dot(enc_out, lp["xk_w"], cdt), kv_heads))
+        vi.copy_(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
+                              kv_heads))
     if not int8_kv:
         return k, v
     kq, k_scale, vq, v_scale, _ = quantize_kv_for_kernel(k, v)
@@ -497,8 +524,11 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     """Run the decoder over a chunk of new tokens ``input_ids`` [B, Lc] at
     absolute positions ``pos0 .. pos0 + Lc - 1`` (prefill: the prompt; decode:
     one token). Query ``qi`` of the chunk sees cache positions
-    ``<= pos0 + qi``. ``cross_k`` / ``cross_v`` are tensors, or the int8
-    pairs of ``precompute_cross_kv(int8_kv=True)`` together with
+    ``<= pos0 + qi``. ``cross_k`` / ``cross_v`` are the head-major tensors
+    of ``precompute_cross_kv``, with B' rows where B is a multiple of B':
+    each serves B / B' consecutive rows of the chunk (a window's beams,
+    :func:`_cross_attention`). Or they are the int8 pairs of
+    ``precompute_cross_kv(int8_kv=True)``, a row each, together with
     ``cross_seq_len``, their number of valid encoder positions: a single
     token then goes through the int8 cross-attention kernel, a longer chunk
     (the prefill) dequantizes the pairs once.
@@ -583,8 +613,8 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
                 a = _attention(_split_heads(q2d, heads), kd.to(cdt),
                                vd.to(cdt), cdt)
         else:
-            a = _attention(_split_heads(q2d, heads), cross_k[i], cross_v[i],
-                           cdt)
+            a = _cross_attention(_split_heads(q2d, heads), cross_k[i],
+                                 cross_v[i], cdt)
         x = x + _dot(a, lp["xo_w"], cdt) + lp["xo_b"]
 
         h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
