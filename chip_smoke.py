@@ -1106,14 +1106,16 @@ def top2_margins(seg, frontend, clips: np.ndarray, tokens,
     xk, xv = precompute_cross_kv(seg.params, cfg, enc, int8_kv=int8_kv)
     ck, cv = init_cache(cfg, ids.shape[0], ids.shape[1], seg.device)
     if not int8_kv:
-        logits, _, _ = decoder_step(seg.params, cfg, xk, xv, ids, 0, ck, cv)
+        logits, _, _ = decoder_step(seg.params, cfg, xk, xv, ids,
+                                    torch.tensor(0, device=seg.device), ck, cv)
     else:
-        pl, seq_len = len(tok.PROMPT_IDS), enc.shape[1]
+        pl = len(tok.PROMPT_IDS)
         chunks = [(0, pl)] + [(t, t + 1) for t in range(pl, ids.shape[1])]
         parts = []
         for a, b in chunks:
-            out, ck, cv = decoder_step(seg.params, cfg, xk, xv, ids[:, a:b], a,
-                                       ck, cv, cross_seq_len=seq_len)
+            out, ck, cv = decoder_step(seg.params, cfg, xk, xv, ids[:, a:b],
+                                       torch.tensor(a, device=seg.device),
+                                       ck, cv)
             parts.append(out)
         logits = torch.cat(parts, dim=1)
     top2 = logits.topk(2, dim=-1).values

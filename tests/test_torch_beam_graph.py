@@ -2,10 +2,9 @@
 replaced by running its body: the search through the static buffers gives
 the eager loop's tokens and reuses one graph a shape, beam widths of equal
 rows keep a graph each, each device keeps the graphs that fit its share
-of memory, and the buffers hold the cross K/V at a row a window, as many
-bytes as ``static_bytes`` counts. On the card (marked ``card``: each skips
-without one), on the tiny checkpoint's widths: ``decoder_step`` at a
-device-side position equals the int path bit for bit; graphed and eager
+of memory (a graph's bytes are those its buffers hold), and the buffers
+hold the cross K/V at a row a window. On the card (marked ``card``: each
+skips without one), on the tiny checkpoint's widths: graphed and eager
 beam search give the same tokens, on the caller's thread and on a worker
 thread (as the mesh path decodes), and for two beam widths of equal rows;
 two calls of one shape capture once and the second replays; each
@@ -25,7 +24,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from whisperseg_torch import decode, profiling
-from whisperseg_torch import tokenizer as tok
 from whisperseg_torch.audio.frontend import Frontend
 from whisperseg_torch.checkpoint import cast_params, load_checkpoint
 from whisperseg_torch.models import whisper as tw
@@ -89,25 +87,6 @@ def on_card(model, card, dtype):
             dataclasses.replace(cfg, compute_dtype=dtype), enc.to(card))
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decoder_step_at_a_device_position_equals_the_int_path(
-        model, card, dtype):
-    params, cfg, enc = on_card(model, card, dtype)
-    xk, xv = tw.precompute_cross_kv(params, cfg, enc)
-    ck, cv = tw.init_cache(cfg, enc.shape[0], 16, card)
-    prompt = torch.tensor(tok.PROMPT_IDS, device=card).expand(enc.shape[0], -1)
-    tw.decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv)
-    pos = prompt.shape[1]
-    ids = torch.full((enc.shape[0], 1), 40, dtype=torch.long, device=card)
-    a, b = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
-    want = tw.decoder_step(params, cfg, xk, xv, ids, pos, *a)[0]
-    got = tw.decoder_step(params, cfg, xk, xv, ids,
-                          torch.tensor(pos, device=card), *b)[0]
-    assert torch.equal(got, want)
-    assert torch.equal(b[0], a[0]) and torch.equal(b[1], a[1])
-
-
 def _eager(params, cfg, kw, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(decode, "graph_engages", lambda *args: False)
@@ -119,7 +98,7 @@ def _eager(params, cfg, kw, monkeypatch):
 def test_graphed_and_eager_beam_search_give_the_same_tokens(
         model, card, dtype, fresh, monkeypatch):
     params, cfg, enc = on_card(model, card, dtype)
-    assert decode.graph_engages(params, card, False)
+    assert decode.graph_engages(params, cfg, card, False)
     kw = dict(max_length=100, num_beams=4, enc_out=enc)
     graphed = [decode.generate(params, cfg, **kw) for _ in range(2)]
     eager = _eager(params, cfg, kw, monkeypatch)
@@ -250,17 +229,20 @@ def test_beam_search_through_the_static_buffers_gives_the_eager_tokens(
 def test_static_buffers_hold_the_cross_kv_at_a_row_a_window(
         tiny, dtype, batch, k):
     """The graph's buffers hold the cross K/V head-major at one row a window
-    and the self-attention cache at a row a beam; ``static_bytes`` counts
-    exactly the bytes ``buffers`` allocates."""
+    and the self-attention cache at a row a beam; the graph counts exactly
+    the bytes they hold, as does the same graph on the ``meta`` device
+    (the measure the cache's budget takes before it allocates)."""
     cfg = dataclasses.replace(tiny[1], compute_dtype=dtype)
-    (xk, xv), cache = decode._Whisper.buffers(cfg, "cpu", batch, k, 40, 50)
+    graph = decode._BeamGraph(cfg, torch.device("cpu"), batch, k, 40, 50)
+    (xk, xv), cache = graph.buffers
     assert xk.shape == xv.shape == (cfg.decoder_layers, batch, cfg.kv_heads,
                                     50, cfg.head_dim)
     assert cache["ck"].shape == cache["cv"].shape == (
         cfg.decoder_layers, batch * k, 40, cfg.kv_heads, cfg.head_dim)
     held = sum(t.nbytes for t in (xk, xv, *cache.values()))
-    assert decode._Whisper.static_bytes(cfg, batch, k, 40, 50) == held
-    assert decode._static_bytes(cfg, batch * k, 40, 50, k) == held
+    assert graph.nbytes == held
+    assert decode._BeamGraph(cfg, torch.device("meta"), batch, k, 40,
+                             50).nbytes == held
 
 
 def _graphs_on_the_cpu(monkeypatch, capture, memory=1 << 40):
@@ -302,7 +284,8 @@ def test_each_device_keeps_the_graphs_that_fit_its_share(tiny, monkeypatch):
     used first; another device's graphs are not counted against it; a shape
     that alone does not fit gets no graph."""
     params, cfg = tiny[0], tiny[1]
-    size = decode._static_bytes(cfg, 4, 10, 50, 4)   # a batch of 1, 4 beams
+    # a batch of 1 at 4 beams, as its graph holds it
+    size = decode._BeamGraph(cfg, torch.device("meta"), 1, 4, 10, 50).nbytes
     _graphs_on_the_cpu(monkeypatch, _run_body, memory=4 * 3 * size)
 
     def graph(device, batch, max_length=10):

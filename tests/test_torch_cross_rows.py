@@ -91,7 +91,7 @@ def test_a_beam_step_reads_the_cross_kv_in_place(kv_heads, one_thread):
     ids = torch.randint(0, cfg.vocab_size, (8, 1), generator=gen)
     least = xk[0].numel()
     assert _copies_over(seq, least, lambda: tw.decoder_step(
-        params, cfg, xk, xv, ids, 5, ck, cv)) == []
+        params, cfg, xk, xv, ids, torch.tensor(5), ck, cv)) == []
 
     q = torch.randn(8, 1, cfg.num_heads, cfg.head_dim, generator=gen)
     k = xk[0].transpose(1, 2).repeat_interleave(4, 0)

@@ -3,12 +3,8 @@
 as shipped, greedy identical and beam picks of equal score; in the quantized
 modes (int8, int4, int8 cross K/V) greedy identical to the JAX package on its
 TPU kernel path, and teacher-forced logits within a stated distance. Then
-what the beam step's CUDA graph rests on: ``decoder_step`` at a device-side
-position equal to the int path, and the rule that decides where a graph is
-used (tests/test_torch_beam_graph.py holds the graph itself)."""
-
-import dataclasses
-import functools
+the rule that decides where the beam step's CUDA graph is used
+(tests/test_torch_beam_graph.py holds the graph itself)."""
 
 import jax
 import jax.numpy as jnp
@@ -232,11 +228,11 @@ def test_quantized_decoder_logits_close_to_jax_kernel_path(quant_setup, bits=8):
     assert np.abs(off).max() <= 1 and np.mean(off != 0) < 1e-4
     tck, tcv = tw.init_cache(cfg, 3, 100, "cpu")
     tids = torch.from_numpy(np.array(ids))
-    got = [tw.decoder_step(params, cfg, txk, txv, tids[:, :pl], 0, tck, tcv,
-                           cross_seq_len=500)[0][:, -1].numpy()]
+    got = [tw.decoder_step(params, cfg, txk, txv, tids[:, :pl],
+                           torch.tensor(0), tck, tcv)[0][:, -1].numpy()]
     for t in range(pl, pl + steps):
-        got.append(tw.decoder_step(params, cfg, txk, txv, tids[:, t:t + 1], t,
-                                   tck, tcv, cross_seq_len=500)[0][:, -1].numpy())
+        got.append(tw.decoder_step(params, cfg, txk, txv, tids[:, t:t + 1],
+                                   torch.tensor(t), tck, tcv)[0][:, -1].numpy())
     for g, w in zip(got, want):
         assert np.abs(g - w).max() < 0.005 * np.abs(w).max(), \
             np.abs(g - w).max() / np.abs(w).max()
@@ -264,48 +260,6 @@ def test_out_of_slice_options_raise(setup):
 # ------------------------------------------------- the beam step's CUDA graph
 
 
-def _as(setup, dtype):
-    """The float32 tiny checkpoint run at ``dtype`` (weights cast too)."""
-    params, cfg = setup[2], setup[3]
-    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
-    if dtype == "bfloat16":
-        params = cast_params(params, torch.bfloat16)
-    return params, cfg
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("at", ["first", "middle", "last"])
-@pytest.mark.parametrize("route", ["plain", "int8", "int8_kv"])
-def test_decoder_step_at_a_device_position_equals_the_int_path(
-        setup, one_thread, dtype, at, route):
-    """A single-token step with ``pos0`` a 0-dim long tensor: logits and
-    both caches bit for bit those of the int position, over a cache whose
-    history is random, at the first step, one in the middle and the
-    cache's last slot; with plain weights, int8 weights, and int8 weights
-    with int8 cross K/V (the route of the benchmark's token control)."""
-    params, cfg = _as(setup, dtype)
-    if route != "plain":
-        params = quantize_params(params, bits=8)
-    gen = torch.Generator().manual_seed(3)
-    enc = torch.randn(2, 50, cfg.d_model, generator=gen)
-    xk, xv = tw.precompute_cross_kv(params, cfg, enc,
-                                    int8_kv=route == "int8_kv")
-    max_len = 12
-    ck, cv = tw.init_cache(cfg, 2, max_len, "cpu")
-    ck.normal_(generator=gen)
-    cv.normal_(generator=gen)
-    ids = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
-    pos = {"first": len(tok.PROMPT_IDS), "middle": 7, "last": max_len - 1}[at]
-    step = functools.partial(tw.decoder_step, params, cfg, xk, xv, ids,
-                             cross_seq_len=50)
-    a, b = (ck.clone(), cv.clone()), (ck.clone(), cv.clone())
-    want = step(pos, *a)[0]
-    got = step(torch.tensor(pos), *b)[0]
-    assert torch.equal(got, want)
-    assert torch.equal(b[0], a[0]) and torch.equal(b[1], a[1])
-    assert not torch.equal(a[0][:, :, pos], ck[:, :, pos])  # the step wrote
-
-
 @pytest.fixture(scope="module")
 def weight_kinds(setup):
     params = setup[2]
@@ -317,11 +271,11 @@ def weight_kinds(setup):
 @pytest.mark.parametrize("kind", ["plain", "int8", "int4"])
 @pytest.mark.parametrize("int8_kv", [False, True])
 def test_graph_engages_on_the_card_with_plain_weights_and_float_kv(
-        weight_kinds, device, kind, int8_kv):
+        setup, weight_kinds, device, kind, int8_kv):
     """Decided by what the input shows alone (no card needed to ask)."""
     want = device == "cuda" and kind == "plain" and not int8_kv
-    assert decode.graph_engages(weight_kinds[kind], torch.device(device),
-                                int8_kv) is want
+    assert decode.graph_engages(weight_kinds[kind], setup[3],
+                                torch.device(device), int8_kv) is want
 
 
 @pytest.mark.parametrize("mode", ["beam", "greedy", "sampling",

@@ -1,6 +1,10 @@
 """The port's encoder, frame head, cross-K/V precompute and cached decoder
 step against the JAX package on the same parameters and inputs (float32
-compute, 1e-4; the bf16 encoder at 1 % relative)."""
+compute, 1e-4; the bf16 encoder at 1 % relative); a single-token step at a
+device-side position over a random history, on every route."""
+
+import contextlib
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -15,11 +19,15 @@ from whisperseg_tpu.models import init_params
 from whisperseg_tpu.models import make_config as jax_make_config
 from whisperseg_tpu.models import whisper as jw
 from whisperseg_tpu.ops import attention as jatt
+from whisperseg_tpu.ops import quant as jq
+from jax_kernel_path import jax_kernel_path
 from whisperseg_torch.checkpoint import (cast_params, load_checkpoint,
                                          params_from_numpy)
+from whisperseg_torch import tokenizer as tok
 from whisperseg_torch.decode import generate
 from whisperseg_torch.models import whisper as tw
 from whisperseg_torch.models.config import make_config
+from whisperseg_torch.ops.quant import quantize_params
 from whisperseg_torch.synthetic import tone_bursts
 
 ATOL = 1e-4
@@ -134,7 +142,8 @@ def test_bf16_decoder_steps_match_jitted_jax():
     pos = 0
     for step in range(4):  # prefill, then three single-token steps
         logits, ck, cv = tw.decoder_step(params, cfg, xk, xv,
-                                         torch.from_numpy(ids), pos, ck, cv)
+                                         torch.from_numpy(ids),
+                                         torch.tensor(pos), ck, cv)
         jlogits, jck, jcv = jstep(jparams, jcfg, jxk, jxv,
                                   jnp.asarray(ids, jnp.int32), jnp.int32(pos),
                                   jck, jcv)
@@ -178,8 +187,8 @@ def test_bf16_base_decoder_within_its_own_summation_noise(monkeypatch):
         xk, xv = tw.precompute_cross_kv(params, cfg, tenc)
         ck, cv = tw.init_cache(cfg, 4, 40, "cpu")
         return tw.decoder_step(params, cfg, xk, xv,
-                               torch.from_numpy(ids.astype(np.int64)), 0,
-                               ck, cv)[0].numpy()
+                               torch.from_numpy(ids.astype(np.int64)),
+                               torch.tensor(0), ck, cv)[0].numpy()
 
     logits = port_logits()
     monkeypatch.setattr(tw, "_dot", lambda x, w, cdt: (
@@ -210,7 +219,8 @@ def test_cross_kv_and_decoder_steps_match_jax(kv_heads):
     pos = 0
     for step in range(4):  # prefill, then three single-token steps
         logits, ck, cv = tw.decoder_step(tparams, cfg, xk, xv,
-                                         torch.from_numpy(ids), pos, ck, cv)
+                                         torch.from_numpy(ids),
+                                         torch.tensor(pos), ck, cv)
         jlogits, jck, jcv = jw.decoder_step(jparams, jcfg, jxk, jxv,
                                             jnp.asarray(ids, jnp.int32),
                                             jnp.int32(pos), jck, jcv)
@@ -221,3 +231,107 @@ def test_cross_kv_and_decoder_steps_match_jax(kv_heads):
         np.testing.assert_allclose(cv.numpy(), np.asarray(jcv), atol=ATOL)
         pos += ids.shape[1]
         ids = np.array([[23 + 5 * step], [40 + step]], np.int64)
+
+
+# the positions of a single-token step in a 12-slot cache
+MAX_LEN = 12
+POSITIONS = {"first": len(tok.PROMPT_IDS), "middle": 7, "last": MAX_LEN - 1}
+# the Pallas kernels the JAX package's step must have traced on each route
+KERNELS = {"plain": set(), "int8": {"quant.py"},
+           "int8_kv": {"quant.py", "cross_attention.py"}}
+
+
+def _route(jparams, params, route, dtype):
+    """Both packages' tiny checkpoint on ``route`` at ``dtype``: plain, or
+    each package's own int8 quantization of the float32 weights, the float
+    leaves cast to ``dtype`` after."""
+    if route != "plain":
+        jparams = jq.quantize_params(jparams, bits=8)
+        params = quantize_params(params, bits=8)
+    if dtype == "bfloat16":
+        jparams = jq.cast_float_leaves(jparams, "bfloat16")
+        params = cast_params(params, torch.bfloat16)
+    return jparams, params
+
+
+@pytest.fixture(scope="module")
+def device_steps():
+    """For a (route, dtype): the port's model, its inputs (a 50-position
+    encoder output, a cache of random history, one token a row) and the
+    JAX package's ``decoder_step`` at each of ``POSITIONS``, jitted once with
+    the position traced; the int8 routes on JAX's TPU kernel path."""
+    jparams0, jcfg0 = jax_load(TINY)
+    params0, cfg0 = load_checkpoint(TINY)
+    step = jax.jit(jw.decoder_step, static_argnums=(1, 8))
+    made = {}
+
+    def get(route, dtype):
+        if (route, dtype) in made:
+            return made[route, dtype]
+        jcfg = dataclasses.replace(jcfg0, compute_dtype=dtype)
+        cfg = dataclasses.replace(cfg0, compute_dtype=dtype)
+        jparams, params = _route(jparams0, params0, route, dtype)
+        int8_kv = route == "int8_kv"
+        gen = torch.Generator().manual_seed(3)
+        enc = torch.randn(2, 50, cfg.d_model, generator=gen)
+        ck, cv = tw.init_cache(cfg, 2, MAX_LEN, "cpu")
+        ck.normal_(generator=gen)
+        cv.normal_(generator=gen)
+        ids = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+
+        def as_jax(t):
+            return jnp.asarray(t.float().numpy(), dtype)
+        want = {}
+        with (jax_kernel_path() if route != "plain"
+              else contextlib.nullcontext([])) as traced:
+            jxk, jxv = jw.precompute_cross_kv(jparams, jcfg,
+                                              jnp.asarray(enc.numpy()),
+                                              int8_kv=int8_kv)
+            for at, pos in POSITIONS.items():
+                logits, jck, jcv = step(jparams, jcfg, jxk, jxv,
+                                        jnp.asarray(ids.numpy(), jnp.int32),
+                                        jnp.int32(pos), as_jax(ck),
+                                        as_jax(cv), 50)
+                want[at] = [np.asarray(x, np.float32)
+                            for x in (logits, jck, jcv)]
+        assert set(traced) == KERNELS[route], traced
+        made[route, dtype] = (params, cfg, enc, ck, cv, ids, want)
+        return made[route, dtype]
+    return get
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("at", ["first", "middle", "last"])
+@pytest.mark.parametrize("route", ["plain", "int8", "int8_kv"])
+def test_decoder_step_at_a_device_position_matches_jax(device_steps, route,
+                                                       at, dtype):
+    """A single-token step with ``pos0`` a 0-dim long tensor, over a cache
+    whose history is random, at the first step, one in the middle and the
+    cache's last slot; with plain weights, int8 weights, and int8 weights
+    with int8 cross K/V (the route of the benchmark's token control). Its
+    logits and the cache entry it writes are held to the JAX package's
+    jitted step: plain float32 within ``ATOL``, plain bf16 within 1 % of the
+    largest value (test_bf16_decoder_steps_match_jitted_jax), the int8
+    routes within 0.5 % with the argmax equal
+    (test_torch_decode.py::test_quantized_decoder_logits_close_to_jax_kernel_path).
+    The step writes cache slot ``pos`` and no other."""
+    params, cfg, enc, ck, cv, ids, want = device_steps(route, dtype)
+    pos = POSITIONS[at]
+    xk, xv = tw.precompute_cross_kv(params, cfg, enc,
+                                    int8_kv=route == "int8_kv")
+    got = tw.decoder_step(params, cfg, xk, xv, ids, torch.tensor(pos),
+                          ck.clone(), cv.clone())
+    for name, g, w in zip(("logits", "cache_k", "cache_v"), got, want[at]):
+        g = g.float().numpy()
+        if name != "logits":
+            g, w = g[:, :, pos], w[:, :, pos]
+        if route == "plain" and dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=ATOL, err_msg=name)
+            continue
+        err = np.abs(g - w).max() / np.abs(w).max()
+        assert err < (0.01 if route == "plain" else 0.005), (name, err)
+        if name == "logits" and route != "plain":
+            np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+    for before, after in ((ck, got[1]), (cv, got[2])):
+        slots = (before != after).transpose(0, 2).reshape(MAX_LEN, -1)
+        assert slots.any(dim=1).nonzero().flatten().tolist() == [pos]

@@ -120,13 +120,13 @@ def test_decoder_step_slot_mode_matches_jax(tiny):
     def prefilled():
         tck, tcv = tw.init_cache(cfg, b, max_len, "cpu")
         tw.decoder_step(params, cfg, txk, txv, torch.from_numpy(prompt).long(),
-                        0, tck, tcv, cross_seq_len=30)
+                        torch.tensor(0), tck, tcv)
         return tck, tcv
 
     tck, tcv = prefilled()
     got, gck, _ = tw.decoder_step(
         params, cfg, txk, txv, torch.from_numpy(chunk).long(), pos0, tck, tcv,
-        cross_seq_len=30, truepos=torch.from_numpy(truepos).long(),
+        truepos=torch.from_numpy(truepos).long(),
         slot_valid=torch.from_numpy(slot_valid))
     want = np.asarray(want)
     top = np.abs(want).max()
@@ -137,13 +137,13 @@ def test_decoder_step_slot_mode_matches_jax(tiny):
 
     tck, tcv = prefilled()
     plain = tw.decoder_step(params, cfg, txk, txv,
-                            torch.from_numpy(chunk).long(), pos0, tck, tcv,
-                            cross_seq_len=30)[0]
+                            torch.from_numpy(chunk).long(),
+                            torch.tensor(pos0), tck, tcv)[0]
     assert np.abs(plain.numpy() - np.asarray(want_plain)).max() <= 1e-5 * top
     tck, tcv = prefilled()
     as_slots = tw.decoder_step(
         params, cfg, txk, txv, torch.from_numpy(chunk).long(), pos0, tck, tcv,
-        cross_seq_len=30, truepos=torch.full((b,), pos0),
+        truepos=torch.full((b,), pos0),
         slot_valid=torch.ones(b, max_len, dtype=torch.bool))[0]
     assert np.abs(as_slots.numpy() - plain.numpy()).max() <= 1e-5 * top
     assert torch.equal(as_slots.argmax(-1), plain.argmax(-1))

@@ -8,20 +8,23 @@ condition is read on the host once per step (per iteration, speculative).
 Each iteration, from that read to the end of its dispatch, is a
 ``decode.step`` span (profiling.py).
 
-Beam search's step runs at a position held on the device, so that nothing
-it launches depends on the step. Where :func:`graph_engages` (a CUDA
-device, plain weights, float cross K/V) the step is captured once as a CUDA
-graph over static buffers, per device, weights and shape, and each later
-step is one replay; its ``decode.step`` span counts ``graphed=1``. The
-tokens are those of the eager loop.
+Every step but speculative decoding's runs at a position held on the
+device, so that nothing it launches depends on the step. Where
+:func:`graph_engages` (a CUDA device, plain weights, float cross K/V) beam
+search's step is captured once as a CUDA graph over static buffers, per
+device, weights and shape, and each later step is one replay; its
+``decode.step`` span counts ``graphed=1``. The tokens are those of the
+eager loop.
 
 Beam search runs either decoder family (models/config.py) through one small
 interface (``_FAMILIES``): the prefill of each window, which returns what
 every step reads (Whisper's cross K/V and the audio LM's prefix cache, each
 one a window, shared by its beams and never reordered) and the logits of the
 first pick; the cache of the generated tokens, which beams reorder; the
-step; and the bytes of a graph's static buffers. Greedy search, sampling,
-speculative decoding and int8 cross K/V are Whisper's alone.
+step; and a graph's static buffers, whose bytes are counted by allocating
+them on the ``meta`` device. Greedy search, sampling, speculative decoding
+and int8 cross K/V are Whisper's alone; greedy search runs through
+Whisper's prefill (at one beam) and step.
 
 Sampling (``top_k > 1`` or ``top_p < 1``, greedy path only) is Gumbel-max, as
 ``jax.random.categorical`` is: the pick is ``argmax(logits + g)`` with g
@@ -52,8 +55,8 @@ from . import profiling
 from . import tokenizer as tok
 from .models import audio_lm
 from .models.config import WhisperConfig
-from .models.whisper import (compute_dtype, decoder_step, encoder_forward,
-                             init_cache, precompute_cross_kv)
+from .models.whisper import (compute_dtype, cross_kv_buffers, decoder_step,
+                             encoder_forward, init_cache, precompute_cross_kv)
 from .ops.quant import Quant4Tensor, QuantTensor
 
 NEG_INF = -1e30
@@ -214,14 +217,13 @@ def _generate_greedy(params, cfg, enc_out, max_length: int,
                      constrained: bool = False,
                      noise: Optional[Noise] = None) -> torch.Tensor:
     batch, device = enc_out.shape[0], enc_out.device
-    seq_len = enc_out.shape[1]
-    prompt = _prompt(batch, device)
-    pl = prompt.shape[1]
-    xk, xv = precompute_cross_kv(params, cfg, enc_out, int8_kv=int8_kv)
-    ck, cv = init_cache(cfg, batch, max_length, device)
+    pl = len(tok.PROMPT_IDS)
+    memory, cache, logits = _Whisper.prefill(params, cfg, enc_out, 1,
+                                             max_length, int8_kv, None)
     tokens = torch.full((batch, max_length), tok.PAD_ID, dtype=torch.long,
                         device=device)
-    tokens[:, :pl] = prompt
+    tokens[:, :pl] = _prompt(batch, device)
+    positions = torch.arange(max_length, device=device)
     mode = torch.zeros(batch, dtype=torch.long, device=device)
     last_col = torch.zeros(batch, dtype=torch.long, device=device)
     n_extra = len(cfg.extra_tokens)
@@ -233,24 +235,20 @@ def _generate_greedy(params, cfg, enc_out, max_length: int,
         nxt = _sample_or_argmax(logits, top_k, top_p, noise)
         return (nxt, *_grammar_step(mode, last_col, nxt, n_extra))
 
-    logits, ck, cv = decoder_step(params, cfg, xk, xv, prompt, 0, ck, cv,
-                                  cross_seq_len=seq_len)
-    cur, mode, last_col = pick(logits[:, -1], mode, last_col)
+    cur, mode, last_col = pick(logits, mode, last_col)
     finished = cur == tok.EOT_ID
     tokens[:, pl] = cur
-    pos = pl
-    while pos + 1 < max_length:
+    for col in range(pl + 1, max_length):   # the column each step fills
         with profiling.span("decode.step") as step:
             if bool(finished.all()):
                 step.drop()
                 break
-            logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None],
-                                          pos, ck, cv, cross_seq_len=seq_len)
-            cur, mode, last_col = pick(logits[:, -1], mode, last_col)
+            logits, cache = _Whisper.step(params, cfg, memory, cache, cur,
+                                          positions[col - 1])
+            cur, mode, last_col = pick(logits, mode, last_col)
             cur = torch.where(finished, tok.PAD_ID, cur)
             finished = finished | (cur == tok.EOT_ID)
-            tokens[:, pos + 1] = cur
-            pos += 1
+            tokens[:, col] = cur
     return tokens
 
 
@@ -291,9 +289,7 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
     enc_t = (encoder_forward(params, cfg, features) if enc_out is None
              else enc_out)
     enc_d = encoder_forward(draft_params, draft_cfg, features)
-    batch, s_t = enc_t.shape[:2]
-    s_d = enc_d.shape[1]
-    device = enc_t.device
+    batch, device = enc_t.shape[0], enc_t.device
     xk_t, xv_t = precompute_cross_kv(params, cfg, enc_t)
     xk_d, xv_d = precompute_cross_kv(draft_params, draft_cfg, enc_d)
 
@@ -307,10 +303,10 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
     tokens[:, :pl] = prompt
 
     # prefill both models (slots are positions for the prompt)
-    logits, ck_t, cv_t = decoder_step(params, cfg, xk_t, xv_t, prompt, 0,
-                                      ck_t, cv_t, cross_seq_len=s_t)
-    decoder_step(draft_params, draft_cfg, xk_d, xv_d, prompt, 0, ck_d, cv_d,
-                 cross_seq_len=s_d)
+    zero = torch.zeros((), dtype=torch.long, device=device)
+    logits, ck_t, cv_t = decoder_step(params, cfg, xk_t, xv_t, prompt, zero,
+                                      ck_t, cv_t)
+    decoder_step(draft_params, draft_cfg, xk_d, xv_d, prompt, zero, ck_d, cv_d)
     cur = torch.argmax(logits[:, -1].float(), dim=-1)
     tokens[:, pl] = cur
     finished = cur == tok.EOT_ID
@@ -336,8 +332,7 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
                 spec_prefix = (cols_s >= slot0) & (cols_s < slot0 + j)
                 dl, ck_d, cv_d = decoder_step(
                     draft_params, draft_cfg, xk_d, xv_d, x_j[:, None],
-                    slot0 + j, ck_d, cv_d, cross_seq_len=s_d,
-                    truepos=tp - 1 + j,
+                    slot0 + j, ck_d, cv_d, truepos=tp - 1 + j,
                     slot_valid=slot_valid | spec_prefix[None])
                 x_j = torch.argmax(dl[:, -1].float(), dim=-1)
                 if j < k:
@@ -348,7 +343,7 @@ def generate_speculative(params, cfg: WhisperConfig, draft_params,
             chunk = torch.cat([cur[:, None], drafts], dim=1)       # [B, k+1]
             tl, ck_t, cv_t = decoder_step(
                 params, cfg, xk_t, xv_t, chunk, slot0, ck_t, cv_t,
-                cross_seq_len=s_t, truepos=tp - 1, slot_valid=slot_valid)
+                truepos=tp - 1, slot_valid=slot_valid)
             forwards += 1
             g = torch.argmax(tl.float(), dim=-1)                   # [B, k+1]
 
@@ -446,8 +441,8 @@ def _keep_going(live_scores, lengths, bank_scores, lp_pow: float):
 class _Whisper:
     """Whisper's decoder: the cross K/V of each window, head-major, read by
     its beams in place (``decoder_step``), and the self-attention cache
-    ``ck`` / ``cv`` of every row. The int8 cross K/V keeps a copy for each
-    beam (the kernel of ops/cross_attention.py reads a row a query)."""
+    ``ck`` / ``cv`` of every row. models/whisper.py decides the cross K/V's
+    layout and rows (``precompute_cross_kv``)."""
     CACHE = ("ck", "cv")
 
     @staticmethod
@@ -457,60 +452,54 @@ class _Whisper:
                 + list(dec["layers"].values()))
 
     @staticmethod
-    def static_bytes(cfg, batch: int, k: int, max_length: int,
-                     seq_len: int) -> int:
-        per_pos = (cfg.decoder_layers * batch * cfg.kv_heads * cfg.head_dim
-                   * torch.empty((), dtype=compute_dtype(cfg)).element_size())
-        return 2 * per_pos * (seq_len + k * max_length)
-
-    @staticmethod
     def buffers(cfg, device, batch: int, k: int, max_length: int,
                 seq_len: int):
-        shape = (cfg.decoder_layers, batch, cfg.kv_heads, seq_len,
-                 cfg.head_dim)
-        xk = torch.empty(shape, dtype=compute_dtype(cfg), device=device)
         ck, cv = init_cache(cfg, batch * k, max_length, device)
-        return (xk, torch.empty_like(xk)), {"ck": ck, "cv": cv}
+        cross = cross_kv_buffers(cfg, batch, seq_len, device)
+        return cross, {"ck": ck, "cv": cv}
 
     @staticmethod
     def prefill(params, cfg, enc_out, k: int, max_length: int, int8_kv: bool,
                 buffers):
         batch, device = enc_out.shape[0], enc_out.device
-        seq_len = enc_out.shape[1]
         # rows are beam-major within each batch item; beams reorder the
         # self-attention cache only, never the cross K/V
-        xk, xv = precompute_cross_kv(
-            params, cfg,
-            enc_out.repeat_interleave(k, dim=0) if int8_kv else enc_out,
-            int8_kv=int8_kv, out=None if buffers is None else buffers[0])
+        memory = precompute_cross_kv(params, cfg, enc_out, int8_kv=int8_kv,
+                                     beams=k,
+                                     out=None if buffers is None else buffers[0])
         if buffers is None:
             ck, cv = init_cache(cfg, batch * k, max_length, device)
         else:
             ck, cv = buffers[1]["ck"].zero_(), buffers[1]["cv"].zero_()
-        logits, ck, cv = decoder_step(params, cfg, xk, xv,
-                                      _prompt(batch * k, device), 0, ck, cv,
-                                      cross_seq_len=seq_len)
-        return (xk, xv, seq_len), {"ck": ck, "cv": cv}, logits[:, -1]
+        logits, ck, cv = decoder_step(
+            params, cfg, *memory, _prompt(batch * k, device),
+            torch.zeros((), dtype=torch.long, device=device), ck, cv)
+        return memory, {"ck": ck, "cv": cv}, logits[:, -1]
 
     @staticmethod
     def step(params, cfg, memory, cache, cur, pos):
-        xk, xv, seq_len = memory
-        logits, ck, cv = decoder_step(params, cfg, xk, xv, cur[:, None], pos,
-                                      cache["ck"], cache["cv"],
-                                      cross_seq_len=seq_len)
+        logits, ck, cv = decoder_step(params, cfg, *memory, cur[:, None], pos,
+                                      cache["ck"], cache["cv"])
         return logits[:, -1], {"ck": ck, "cv": cv}
 
     @staticmethod
     def count(memory, stats: dict) -> None:
-        """``cross_rows``: the rows the cross K/V holds."""
-        xk = memory[0][0] if isinstance(memory[0], tuple) else memory[0]
-        stats["cross_rows"] = stats.get("cross_rows", 0) + int(xk.shape[1])
+        """``cross_rows``: the rows the cross K/V holds (axis 1 of each of
+        its tensors)."""
+        rows = _tree_leaves(memory)[0].shape[1]
+        stats["cross_rows"] = stats.get("cross_rows", 0) + int(rows)
 
 
 def _tree_leaves(node) -> list:
     if isinstance(node, dict):
-        return [leaf for v in node.values() for leaf in _tree_leaves(v)]
+        node = list(node.values())
+    if isinstance(node, (list, tuple)):
+        return [leaf for v in node for leaf in _tree_leaves(v)]
     return [node]
+
+
+def _nbytes(tree) -> int:
+    return sum(t.nbytes for t in _tree_leaves(tree))
 
 
 class _AudioLM:
@@ -525,15 +514,6 @@ class _AudioLM:
     @staticmethod
     def leaves(params) -> list:
         return _tree_leaves(params["lm"])
-
-    @staticmethod
-    def static_bytes(cfg, batch: int, k: int, max_length: int,
-                     seq_len: int) -> int:
-        c = audio_lm.lm_config(cfg)
-        pl = audio_lm.prompt_length()
-        item = torch.empty((), dtype=compute_dtype(cfg)).element_size()
-        return (c.num_hidden_layers * c.latent * item
-                * batch * (seq_len + pl + k * (max_length - pl)))
 
     @staticmethod
     def buffers(cfg, device, batch: int, k: int, max_length: int,
@@ -635,11 +615,7 @@ def _beam_step(params, cfg, family, memory, k: int, lp_pow: float,
             "go": _keep_going(live_scores, lengths, bank_scores, lp_pow)}
 
 
-def _decoder_leaves(params) -> list:
-    return (_AudioLM if "lm" in params else _Whisper).leaves(params)
-
-
-def graph_engages(params, device, int8_kv: bool) -> bool:
+def graph_engages(params, cfg: WhisperConfig, device, int8_kv: bool) -> bool:
     """Whether a beam search replays its steps from a CUDA graph: on a CUDA
     device, with plain (unquantized) decoder weights and float cross K/V.
     The quantized weights' kernels and the int8 cross-attention run
@@ -647,7 +623,7 @@ def graph_engages(params, device, int8_kv: bool) -> bool:
     never ask."""
     return (torch.device(device).type == "cuda" and not int8_kv
             and not any(isinstance(w, (QuantTensor, Quant4Tensor))
-                        for w in _decoder_leaves(params)))
+                        for w in _FAMILIES[cfg.decoder_family].leaves(params)))
 
 
 def _capture(body: Callable[[], None], device) -> Callable[[], None]:
@@ -682,11 +658,10 @@ class _BeamGraph:
 
     def __init__(self, cfg: WhisperConfig, device, batch: int, k: int,
                  max_length: int, seq_len: int):
-        family = _FAMILIES[cfg.decoder_family]
         self.device = device
-        self.nbytes = family.static_bytes(cfg, batch, k, max_length, seq_len)
-        self.buffers = family.buffers(cfg, device, batch, k, max_length,
-                                      seq_len)
+        self.buffers = _FAMILIES[cfg.decoder_family].buffers(
+            cfg, device, batch, k, max_length, seq_len)
+        self.nbytes = _nbytes(self.buffers)
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self.replay: Optional[Callable[[], None]] = None
         self.lock = threading.Lock()
@@ -717,15 +692,6 @@ class _BeamGraph:
         self.replay = _capture(body, self.device)
 
 
-def _static_bytes(cfg: WhisperConfig, rows: int, max_length: int,
-                  seq_len: int, k: int = 1) -> int:
-    """The bytes of a graph's static buffers: what every step reads and
-    the caches (Whisper's cross K/V and self-attention cache), for ``rows``
-    = windows x ``k`` beams."""
-    return _FAMILIES[cfg.decoder_family].static_bytes(
-        cfg, rows // k, k, max_length, seq_len)
-
-
 def _device_memory(device) -> int:
     return torch.cuda.get_device_properties(device).total_memory
 
@@ -753,7 +719,8 @@ def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
     on ``device``, made on first use; None where the shape's buffers alone
     exceed the device's share."""
     device = torch.device(device)
-    leaves = _FAMILIES[cfg.decoder_family].leaves(params)
+    family = _FAMILIES[cfg.decoder_family]
+    leaves = family.leaves(params)
     key = (device, tuple((id(w), w.data_ptr()) for w in leaves),
            cfg.decoder_family, cfg.decoder_layers, cfg.num_heads,
            cfg.kv_heads, cfg.vocab_size, cfg.compute_dtype, batch, k,
@@ -763,7 +730,8 @@ def _beam_graph(params, cfg: WhisperConfig, device, batch: int, k: int,
         if graph is not None:
             _GRAPHS.move_to_end(key)
             return graph
-        need = _static_bytes(cfg, batch * k, max_length, seq_len, k)
+        need = _nbytes(family.buffers(cfg, "meta", batch, k, max_length,
+                                      seq_len))
         budget = _GRAPH_SHARE * _device_memory(device)
         if need > budget:
             return None
@@ -788,7 +756,7 @@ def _generate_beam(params, cfg, enc_out, max_length: int, num_beams: int,
     :func:`graph_engages`, with the same tokens."""
     device = enc_out.device
     graph = None
-    if graph_engages(params, device, int8_kv):
+    if graph_engages(params, cfg, device, int8_kv):
         graph = _beam_graph(params, cfg, device, enc_out.shape[0], num_beams,
                             max_length, enc_out.shape[1],
                             float(length_penalty))

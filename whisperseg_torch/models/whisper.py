@@ -473,36 +473,45 @@ def frame_head_loss(logits, targets, cluster_pos_weight: float = 1.0,
 # ------------------------------------------------------------------- decoder
 
 
+def cross_kv_buffers(cfg: WhisperConfig, batch: int, seq_len: int, device
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An empty head-major cross K/V pair [Ld, B, Hkv, S, hd] (compute
+    dtype), the layout the decoder step's products read in place
+    (:func:`_cross_attention`)."""
+    shape = (cfg.decoder_layers, batch, cfg.kv_heads, seq_len, cfg.head_dim)
+    cdt = compute_dtype(cfg)
+    return (torch.empty(shape, dtype=cdt, device=device),
+            torch.empty(shape, dtype=cdt, device=device))
+
+
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
                         enc_out: torch.Tensor, int8_kv: bool = False,
+                        beams: int = 1,
                         out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Cross-attention K/V of every decoder layer, head-major: ([Ld, B, Hkv,
-    S, hd], same) in the compute dtype, the layout the decoder step's
-    products read in place (:func:`_cross_attention`). With ``int8_kv``
-    each becomes a pair (int8 values [Ld, B, S, Hkv*hd], bf16 scales
-    [Ld, B, S, Hkv]), quantized from the compute-dtype K/V in the
-    position-major layout [Ld, B, S, Hkv, hd] (ops/cross_attention.py).
-    Each layer's K/V is written into ``out``, a pair of tensors of the
-    float shape (not with ``int8_kv``), or else into a pair made here."""
+    """Cross-attention K/V of every decoder layer, head-major, written into
+    ``out`` (a pair of :func:`cross_kv_buffers`) or else into a pair made
+    here: one row a window, which its ``beams`` share. With ``int8_kv``
+    (``out`` not given) each becomes a pair (int8 values [Ld, B * beams, S,
+    Hkv*hd], bf16 scales [Ld, B * beams, S, Hkv]) at one row a beam, since
+    the kernel of ops/cross_attention.py reads a row a query: the encoder
+    output is repeated to a row a beam, then projected, and quantized in
+    the position-major layout."""
+    if int8_kv:
+        enc_out = enc_out.repeat_interleave(beams, dim=0)
     layers = params["decoder"]["layers"]
     cdt = compute_dtype(cfg)
-    batch, seq = enc_out.shape[:2]
-    kv_heads, hd = cfg.kv_heads, cfg.head_dim
-    if out is None:
-        shape = ((cfg.decoder_layers, batch, seq, kv_heads, hd) if int8_kv
-                 else (cfg.decoder_layers, batch, kv_heads, seq, hd))
-        out = (torch.empty(shape, dtype=cdt, device=enc_out.device),
-               torch.empty(shape, dtype=cdt, device=enc_out.device))
-    k, v = out
+    k, v = out or cross_kv_buffers(cfg, *enc_out.shape[:2], enc_out.device)
     for i in range(cfg.decoder_layers):
         lp = _layer(layers, i)
-        ki, vi = (k[i], v[i]) if int8_kv else (k[i].transpose(1, 2),
-                                               v[i].transpose(1, 2))
-        ki.copy_(_split_heads(_dot(enc_out, lp["xk_w"], cdt), kv_heads))
-        vi.copy_(_split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
-                              kv_heads))
+        k[i].transpose(1, 2).copy_(
+            _split_heads(_dot(enc_out, lp["xk_w"], cdt), cfg.kv_heads))
+        v[i].transpose(1, 2).copy_(
+            _split_heads(_dot(enc_out, lp["xv_w"], cdt) + lp["xv_b"],
+                         cfg.kv_heads))
     if not int8_kv:
         return k, v
+    k = k.transpose(2, 3).contiguous()   # position-major, one at a time
+    v = v.transpose(2, 3).contiguous()
     kq, k_scale, vq, v_scale, _ = quantize_kv_for_kernel(k, v)
     return (kq, k_scale), (vq, v_scale)
 
@@ -518,37 +527,33 @@ def init_cache(cfg: WhisperConfig, batch: int, max_len: int, device
 
 def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
                  input_ids: torch.Tensor, pos0, cache_k, cache_v,
-                 cross_seq_len: int = 0,
                  truepos: Optional[torch.Tensor] = None,
                  slot_valid: Optional[torch.Tensor] = None):
     """Run the decoder over a chunk of new tokens ``input_ids`` [B, Lc] at
     absolute positions ``pos0 .. pos0 + Lc - 1`` (prefill: the prompt; decode:
-    one token). Query ``qi`` of the chunk sees cache positions
-    ``<= pos0 + qi``. ``cross_k`` / ``cross_v`` are the head-major tensors
-    of ``precompute_cross_kv``, with B' rows where B is a multiple of B':
-    each serves B / B' consecutive rows of the chunk (a window's beams,
-    :func:`_cross_attention`). Or they are the int8 pairs of
-    ``precompute_cross_kv(int8_kv=True)``, a row each, together with
-    ``cross_seq_len``, their number of valid encoder positions: a single
-    token then goes through the int8 cross-attention kernel, a longer chunk
-    (the prefill) dequantizes the pairs once.
+    one token), ``pos0`` a 0-dim long tensor on the step's device. Query
+    ``qi`` of the chunk sees cache positions ``<= pos0 + qi``. The cache
+    write is ``index_copy_`` and the position embedding ``index_select``, so
+    no shape or launch depends on the position and a CUDA graph can capture
+    the step (decode.py's beam search). ``cross_k`` / ``cross_v`` are the
+    head-major tensors of ``precompute_cross_kv``, with B' rows where B is a
+    multiple of B': each serves B / B' consecutive rows of the chunk (a
+    window's beams, :func:`_cross_attention`). Or they are the int8 pairs of
+    ``precompute_cross_kv(int8_kv=True)``, a row each: a single token then
+    goes through the int8 cross-attention kernel, a longer chunk (the
+    prefill) dequantizes the pairs once.
 
     Slot mode (speculative decoding, decode.generate_speculative): with
     ``truepos`` [B] (each row's sequence position of ``input_ids[:, 0]``)
     and ``slot_valid`` [B, max_len] (the cache slots that hold committed
-    history), ``pos0`` is a cache slot, the same for every row: the chunk's
-    K/V go to slots ``pos0 .. pos0 + Lc - 1``, the position embeddings come
-    from ``truepos`` (clipped to the table), and query ``qi`` sees the
-    valid slots below ``pos0`` and the chunk's slots up to its own. Slots
-    at or past ``pos0 + Lc`` are masked for every query, so attention runs
-    over the first ``pos0 + Lc`` slots only (the JAX package attends over
-    all ``max_len`` of them, the masked ones weighing exactly 0).
-
-    Outside slot mode ``pos0`` may also be a 0-dim long tensor on the
-    device: the cache write becomes ``index_copy_``, the position embedding
-    ``index_select``, and no shape or launch depends on the position, so a
-    CUDA graph can capture the step (decode.py's beam search). The values
-    are those of the int.
+    history), ``pos0`` is a cache slot, an int, the same for every row: the
+    chunk's K/V go to slots ``pos0 .. pos0 + Lc - 1``, the position
+    embeddings come from ``truepos`` (clipped to the table), and query
+    ``qi`` sees the valid slots below ``pos0`` and the chunk's slots up to
+    its own. Slots at or past ``pos0 + Lc`` are masked for every query, so
+    attention runs over the first ``pos0 + Lc`` slots only (the JAX package
+    attends over all ``max_len`` of them, the masked ones weighing exactly
+    0).
 
     Returns (logits [B, Lc, vocab] float32, cache_k, cache_v). Unlike the
     JAX version the caches are updated in place (and returned for symmetry)."""
@@ -558,17 +563,13 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
     lc = input_ids.shape[1]
     device = input_ids.device
     qi = torch.arange(lc, device=device)[None, None, :, None]
-    at = None   # the chunk's cache positions, for a device-side pos0
+    at = pos0 + torch.arange(lc, device=device)    # the chunk's cache slots
 
     # The JAX source adds the two embeddings in the parameters' dtype and
     # widens the sum; under jit XLA drops that bf16 round trip (excess
     # precision), so the compiled program adds in float32, as here.
     if truepos is None:
-        if isinstance(pos0, torch.Tensor):
-            at = pos0 + torch.arange(lc, device=device)
-            pos_emb = dec["pos_emb"].index_select(0, at)[None]
-        else:
-            pos_emb = dec["pos_emb"][pos0:pos0 + lc][None]
+        pos_emb = dec["pos_emb"].index_select(0, at)[None]
         keys = cache_k.shape[2]
         key_pos = torch.arange(keys, device=device)[None, None, None, :]
         self_mask = key_pos <= pos0 + qi                       # [1, 1, Lc, K]
@@ -589,12 +590,8 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         q = _split_heads(_dot(h, lp["q_w"], cdt) + lp["q_b"], heads)
         k = _split_heads(_dot(h, lp["k_w"], cdt), kv_heads).to(cdt)
         v = _split_heads(_dot(h, lp["v_w"], cdt) + lp["v_b"], kv_heads).to(cdt)
-        if at is None:
-            cache_k[i, :, pos0:pos0 + lc] = k
-            cache_v[i, :, pos0:pos0 + lc] = v
-        else:
-            cache_k[i].index_copy_(1, at, k)
-            cache_v[i].index_copy_(1, at, v)
+        cache_k[i].index_copy_(1, at, k)
+        cache_v[i].index_copy_(1, at, v)
         a = _attention(q, cache_k[i, :, :keys], cache_v[i, :, :keys], cdt,
                        mask=self_mask, neg=neg)
         x = x + _dot(a, lp["o_w"], cdt) + lp["o_b"]
@@ -603,13 +600,14 @@ def decoder_step(params: Params, cfg: WhisperConfig, cross_k, cross_v,
         q2d = _dot(h, lp["xq_w"], cdt) + lp["xq_b"]
         if isinstance(cross_k, tuple):
             (kq, k_scale), (vq, v_scale) = cross_k, cross_v
+            seq = kq.shape[2]
             if lc == 1:
                 a = cross_attention_int8(
                     q2d[:, 0], kq[i], k_scale[i], vq[i], v_scale[i], kv_heads,
-                    cross_seq_len, num_q_heads=heads)[:, None]
+                    seq, num_q_heads=heads)[:, None]
             else:
-                kd = dequantize_kv(kq[i], k_scale[i], kv_heads, cross_seq_len)
-                vd = dequantize_kv(vq[i], v_scale[i], kv_heads, cross_seq_len)
+                kd = dequantize_kv(kq[i], k_scale[i], kv_heads, seq)
+                vd = dequantize_kv(vq[i], v_scale[i], kv_heads, seq)
                 a = _attention(_split_heads(q2d, heads), kd.to(cdt),
                                vd.to(cdt), cdt)
         else:
